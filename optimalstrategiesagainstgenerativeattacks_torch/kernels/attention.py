@@ -1,0 +1,138 @@
+"""K2: SAGAN self-attention core, a CUDA C++ kernel for Hopper (sm_90a).
+
+Replaces the Pallas TPU kernel ``_attn_kernel`` of
+``optimalstrategiesagainstgenerativeattacks_tpu/ops/pallas/attention_pallas.py``
+at commit 79a0a33 (launched by ``_run_attn`` under ``self_attention_pallas``).
+The kernel source, with the note on what bounds it and how its design
+answers, is ``kernels/csrc/attention.cu``.
+
+    core(f, g, h)[b, j] = sum_i softmax_i(f[b] g[b]^T)[i, j] h[b, i]
+
+with f, g [B, N, CQ] and h [B, N, C]; the softmax runs over the SOURCE axis
+i, all in f32, and the output takes h's dtype.  In standard-attention terms
+it is Q = g, K = f, V = h at scale 1.
+
+The backward is ``attention_core_bwd``: written out in torch ops, as the
+Pallas kernel's custom VJP recomputed through jnp rather than a kernel.
+The forward keeps P in f32 before the second product (as the Pallas kernel
+did); the jnp twin in ``nn/blocks.py:SelfAttention`` rounds P to the
+activation dtype first, which differs only at bf16 rounding level.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from optimalstrategiesagainstgenerativeattacks_torch.kernels.build import (
+    LaunchCounter,
+    load_cuda_library,
+)
+
+FWD_LAUNCHES = LaunchCounter("attention_core_fwd")
+
+MAX_TOKENS = 256
+MAX_SMEM_BYTES = 232448  # per-block dynamic shared memory on sm_90
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib():
+    lib = load_cuda_library("attention")
+    if not getattr(lib, "_osga_typed", False):
+        lib.osga_attention_core_fwd.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.osga_attention_core_fwd.restype = ctypes.c_int
+        lib.osga_attention_core_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.osga_attention_core_smem_bytes.restype = ctypes.c_longlong
+        lib.osga_error_string.argtypes = [ctypes.c_int]
+        lib.osga_error_string.restype = ctypes.c_char_p
+        lib._osga_typed = True
+    return lib
+
+
+def attention_core_cuda(f, g, h):
+    """Launch the kernel.  f, g [B, N, CQ], h [B, N, C], contiguous, one dtype."""
+    for name, t in (("f", f), ("g", g), ("h", h)):
+        if not t.is_cuda:
+            raise ValueError(f"attention_core: {name} is not a CUDA tensor")
+        if t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"attention_core: dtype {t.dtype} not supported")
+        if not t.is_contiguous():
+            raise ValueError(f"attention_core: {name} must be contiguous")
+    if not (f.dtype == g.dtype == h.dtype):
+        raise TypeError("attention_core: f, g and h must share one dtype")
+    b, n, cq = f.shape
+    if g.shape != f.shape or h.shape[:2] != (b, n):
+        raise ValueError(f"attention_core: shapes {f.shape}, {g.shape}, {h.shape}")
+    if n > MAX_TOKENS:
+        raise ValueError(f"attention_core: N={n} > {MAX_TOKENS} tokens")
+    c = h.shape[2]
+    lib = _lib()
+    if lib.osga_attention_core_smem_bytes(n, cq) > MAX_SMEM_BYTES:
+        raise ValueError(f"attention_core: N={n}, CQ={cq} exceed the shared memory")
+    out = torch.empty_like(h)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.osga_attention_core_fwd(
+            f.data_ptr(), g.data_ptr(), h.data_ptr(), out.data_ptr(),
+            b, n, cq, c, _DTYPE_CODES[h.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"attention_core kernel launch failed: {lib.osga_error_string(err).decode()}"
+        )
+    FWD_LAUNCHES.add()
+    return out
+
+
+def attention_core_ref(f, g, h):
+    """Plain PyTorch version of the kernel (f32 throughout, output in h's dtype)."""
+    s = torch.bmm(f.float(), g.float().transpose(1, 2))  # [B, i, j]
+    p = torch.softmax(s, dim=1)
+    return torch.bmm(p.transpose(1, 2), h.float()).to(h.dtype)
+
+
+def attention_core_bwd(f, g, h, dout):
+    """Backward of the core in torch ops (recomputes P; not a kernel).
+
+    P = softmax_i(f g^T);  dh = P dout;  dP[i, j] = h_i . dout_j;
+    dS = P * (dP - sum_i P * dP);  df = dS g;  dg = dS^T f.
+    """
+    ff, gf, hf, df_out = f.float(), g.float(), h.float(), dout.float()
+    p = torch.softmax(torch.bmm(ff, gf.transpose(1, 2)), dim=1)
+    dh = torch.bmm(p, df_out)
+    dp = torch.bmm(hf, df_out.transpose(1, 2))
+    ds = p * (dp - (p * dp).sum(dim=1, keepdim=True))
+    df = torch.bmm(ds, gf)
+    dg = torch.bmm(ds.transpose(1, 2), ff)
+    return df.to(f.dtype), dg.to(g.dtype), dh.to(h.dtype)
+
+
+def _fwd(f, g, h):
+    if h.is_cuda:
+        return attention_core_cuda(f, g, h)
+    if h.device.type == "cpu":
+        return attention_core_ref(f, g, h)
+    raise ValueError(f"attention_core: no kernel for device {h.device}")
+
+
+class AttentionCoreFunction(torch.autograd.Function):
+    """The attention core with the kernel as forward."""
+
+    @staticmethod
+    def forward(ctx, f, g, h):
+        ctx.save_for_backward(f, g, h)
+        return _fwd(f, g, h)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return attention_core_bwd(*ctx.saved_tensors, dout)
+
+
+def attention_core(f, g, h):
+    """[B, N, CQ], [B, N, CQ], [B, N, C] -> [B, N, C]; softmax over source tokens."""
+    return AttentionCoreFunction.apply(f.contiguous(), g.contiguous(), h.contiguous())
