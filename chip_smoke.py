@@ -5,9 +5,17 @@
 Phases (each prints its lines; the first failure exits non-zero):
   1. card:    require CUDA; print the card's name and power limit;
   2. build:   build the hand-written kernels from the checkout's sources;
+              print each CUDA kernel's registers and spills (ptxas) and
+              the tensor-core instructions of the bf16 attention kernel
+              (cuobjdump);
   3. kernels: each kernel against its plain PyTorch version at every site
-              the flagship train step gives it, in bf16 and f32, with the
-              kernel's and the plain version's times (CUDA events);
+              the flagship train step gives it, in bf16 and f32; then, in
+              bf16, the device time of the kernel, its plain version and
+              (attention) the one PyTorch call for the same function, each
+              call after a write of a 128 MB buffer that evicts L2, from
+              torch.profiler's CUDA kernel records (median of the calls),
+              beside the bound: bytes over 3.35 TB/s or flops over the
+              peak rate, whichever is larger;
   4. slice:   the flagship impersonator and authenticator forwards in f32
               on the card (kernels) against the same models on the CPU
               (plain versions), same weights, fixed noise;
@@ -15,7 +23,8 @@ Phases (each prints its lines; the first failure exits non-zero):
               uint8 episodes drawn from --seed; metrics must be finite and
               every kernel of the path must have launched its expected
               count; prints steps/s and images/s.
-The second-to-last line is a JSON summary of the kernels; the last line is
+The second-to-last line is a JSON summary of the kernels, with times per
+flagship step (sum over sites of ms x launches per step); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -26,6 +35,10 @@ import copy
 import itertools
 import json
 import math
+import os
+import re
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -51,6 +64,12 @@ ATTENTION_SITES = {  # (B', N, C, CQ): forward launches per step
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2.0 ** -6)}  # (atol, rtol)
 SLICE_TOL = 1e-3  # f32 forward, card vs CPU, TF32 off: |err| <= tol * max(1, max|ref|)
 
+# NVIDIA H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core peaks
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16_tensor": 989e12, "f32": 67e12}
+L2_FLUSH_BYTES = 128 << 20  # > the 50 MB L2: each timed call finds its inputs cold
+TIMED_CALLS = 20
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -65,18 +84,72 @@ def smi_line() -> str:
     return out.splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def bound(n_bytes: int, flops: int, rate: str) -> tuple:
+    """(least time in ms, "bytes" or "operations") for this much work on the card."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[rate]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+class DeviceTimer:
+    """Device time of a call, from torch.profiler's CUDA activity records.
+
+    Each call follows a bitwise_not over a 128 MB buffer: it evicts L2 and
+    marks in the trace where the call starts.  A call's time is the sum of
+    the durations of the device activities (kernels, memsets, copies)
+    between its marker and the next; the median over TIMED_CALLS calls.
+    Returns {tag: (ms, names of the call's kernels)}.
+    """
+
+    def __init__(self):
+        self.jobs = {}
+        self.flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+
+    def add(self, tag: str, fn) -> None:
+        self.jobs[tag] = fn
+
+    def run(self) -> dict:
+        from torch.profiler import ProfilerActivity, profile
+
+        for fn in self.jobs.values():  # warm up: compiles, cuBLAS / cuDNN heuristics
+            fn()
+        torch.cuda.synchronize()
+        expected = TIMED_CALLS * len(self.jobs)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # throwaway calls first: the trace may miss the first activities
+            for fn in [next(iter(self.jobs.values()))] * 3 + [
+                    fn for fn in self.jobs.values() for _ in range(TIMED_CALLS)]:
+                torch.bitwise_not(self.flush, out=self.flush)
+                fn()
+            torch.cuda.synchronize()
+        device = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        calls = []
+        for e in device:
+            if "bitwise_not" in e.name:
+                calls.append([])
+            elif calls:
+                calls[-1].append(e)
+        if len(calls) < expected:
+            fail(f"timer: {len(calls)} marked calls in the trace, expected {expected} and more")
+        calls = calls[-expected:]
+        out = {}
+        for k, tag in enumerate(self.jobs):
+            mine = calls[k * TIMED_CALLS:(k + 1) * TIMED_CALLS]
+            times = [sum(e.time_range.end - e.time_range.start for e in c) for c in mine]
+            if min(times) <= 0.0 or len({len(c) for c in mine}) != 1:
+                fail(f"timer: {tag}: calls with no device time, or that ran different kernels")
+            out[tag] = (statistics.median(times) / 1e3, {e.name for c in mine for e in c})
+        self.jobs.clear()
+        return out
+
+
+def sdpa_backend(kernels: set) -> str:
+    """SDPA's backend, read from the names of the kernels it ran."""
+    for key, name in (("flash", "flash"), ("fmha", "efficient"), ("cudnn", "cudnn")):
+        if any(key in k.lower() for k in kernels):
+            return name
+    return "math"
 
 
 def compare(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> float:
@@ -95,9 +168,28 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float, rtol: 
     return err
 
 
-def check_adain(gen: torch.Generator, results: dict) -> None:
+def site_line(tag: str, k_ms: float, p_ms: float, bound_ms: float, bound_by: str,
+              lib: str = "") -> None:
+    print(f"    {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by}), share of bound {bound_ms / k_ms:.3f}")
+
+
+def add_site(results: dict, name: str, per_step: int, k_ms: float, p_ms: float,
+             bound_ms: float, bound_by: str, lib_ms=None) -> None:
+    r = results[name]
+    r["launches_per_step"] += per_step
+    r["ms"] += per_step * k_ms
+    r["plain_ms"] += per_step * p_ms
+    r["bound_ms"] += per_step * bound_ms
+    r["_bound_by"][bound_by] += per_step * bound_ms
+    if lib_ms is not None:
+        r["library_ms"] = (r["library_ms"] or 0.0) + per_step * lib_ms
+
+
+def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> None:
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import adain as k1
 
+    sites = []
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
         for (b, c, h, w), per_step in ADAIN_SITES.items():
@@ -115,25 +207,37 @@ def check_adain(gen: torch.Generator, results: dict) -> None:
             ref = k1.ada_in_bwd_ref(x, ss, g)
             bwd_err = max(compare(f"bwd {n}", a, r_, atol, rtol)
                           for n, a, r_ in zip(("dx", "dmean", "dstd"), got, ref))
-            t = {
-                "fwd": cuda_ms(lambda: k1.ada_in_fwd_cuda(x, ms, ss)),
-                "fwd_plain": cuda_ms(lambda: k1.ada_in_ref(x, ms, ss)),
-                "bwd": cuda_ms(lambda: k1.ada_in_bwd_cuda(x, ss, g)),
-                "bwd_plain": cuda_ms(lambda: k1.ada_in_bwd_ref(x, ss, g)),
-            }
-            print(f"    ms: fwd {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}), "
-                  f"bwd {t['bwd']:.4f} (plain {t['bwd_plain']:.4f})")
-            for kname, err, key in (("adain_fwd", fwd_err, "fwd"), ("adain_bwd", bwd_err, "bwd")):
-                r = results[kname]
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-                if dtype == torch.bfloat16:  # the train step's dtype
-                    r["ms"] += per_step * t[key]
-                    r["plain_ms"] += per_step * t[key + "_plain"]
+            results["adain_fwd"]["max_abs_err"] = max(results["adain_fwd"]["max_abs_err"], fwd_err)
+            results["adain_bwd"]["max_abs_err"] = max(results["adain_bwd"]["max_abs_err"], bwd_err)
+            if dtype != torch.bfloat16:  # only the train step's dtype is timed
+                continue
+            timer.add(f"{tag} fwd", lambda x=x, ms=ms, ss=ss: k1.ada_in_fwd_cuda(x, ms, ss))
+            timer.add(f"{tag} fwd plain", lambda x=x, ms=ms, ss=ss: k1.ada_in_ref(x, ms, ss))
+            timer.add(f"{tag} bwd", lambda x=x, ss=ss, g=g: k1.ada_in_bwd_cuda(x, ss, g))
+            timer.add(f"{tag} bwd plain", lambda x=x, ss=ss, g=g: k1.ada_in_bwd_ref(x, ss, g))
+            sites.append((tag, (b, h, w, c), per_step))
+
+    print("  timing the bf16 sites (device time, L2 evicted before each call)", flush=True)
+    t = timer.run()
+    for tag, (b, h, w, c), per_step in sites:
+        print(f"  {tag} (x{per_step} per step)")
+        for d, name, n_bytes, flops in (
+                ("fwd", "adain_fwd", k1.ada_in_fwd_bytes(b, h, w, c, torch.bfloat16),
+                 k1.ada_in_fwd_flops(b, h, w, c)),
+                ("bwd", "adain_bwd", k1.ada_in_bwd_bytes(b, h, w, c, torch.bfloat16),
+                 k1.ada_in_bwd_flops(b, h, w, c))):
+            k_ms, p_ms = t[f"{tag} {d}"][0], t[f"{tag} {d} plain"][0]
+            b_ms, b_by = bound(n_bytes, flops, "f32")
+            site_line(d, k_ms, p_ms, b_ms, b_by)
+            add_site(results, name, per_step, k_ms, p_ms, b_ms, b_by)
 
 
-def check_attention(gen: torch.Generator, results: dict) -> None:
+def check_attention(gen: torch.Generator, results: dict, timer: DeviceTimer) -> None:
+    import torch.nn.functional as F
+
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import attention as k2
 
+    sites = []
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
         for (b, n, c, cq), per_step in ATTENTION_SITES.items():
@@ -142,8 +246,8 @@ def check_attention(gen: torch.Generator, results: dict) -> None:
 
             f, g, h = rand(b, n, cq, scale=0.5), rand(b, n, cq, scale=0.5), rand(b, n, c)
             dout = rand(b, n, c)
-            print(f"  attention {dtype_name(dtype)} B'={b} N={n} C={c} CQ={cq} "
-                  f"(x{per_step} per step)")
+            tag = f"attention {dtype_name(dtype)} B'={b} N={n} C={c} CQ={cq}"
+            print(f"  {tag} (x{per_step} per step)")
             fwd_err = compare("fwd", k2.attention_core_cuda(f, g, h),
                               k2.attention_core_ref(f, g, h), atol, rtol)
             leaves = [t.clone().requires_grad_(True) for t in (f, g, h)]
@@ -152,14 +256,66 @@ def check_attention(gen: torch.Generator, results: dict) -> None:
             k2.attention_core_ref(*leaves_ref).backward(dout)
             for name, a, r_ in zip(("df", "dg", "dh"), leaves, leaves_ref):
                 compare(f"bwd {name}", a.grad, r_.grad, atol, rtol)
-            t_k = cuda_ms(lambda: k2.attention_core_cuda(f, g, h))
-            t_p = cuda_ms(lambda: k2.attention_core_ref(f, g, h))
-            print(f"    ms: fwd {t_k:.4f} (plain {t_p:.4f})")
             r = results["attention_core_fwd"]
             r["max_abs_err"] = max(r["max_abs_err"], fwd_err)
-            if dtype == torch.bfloat16:
-                r["ms"] += per_step * t_k
-                r["plain_ms"] += per_step * t_p
+            if dtype != torch.bfloat16:
+                continue
+            timer.add(f"{tag} kernel", lambda f=f, g=g, h=h: k2.attention_core_cuda(f, g, h))
+            timer.add(f"{tag} plain", lambda f=f, g=g, h=h: k2.attention_core_ref(f, g, h))
+            # yardstick only: standard attention with Q = g, K = f, V = h at scale 1
+            timer.add(f"{tag} library", lambda f=f, g=g, h=h: F.scaled_dot_product_attention(
+                g, f, h, scale=1.0))
+            sites.append((tag, (b, n, c, cq), per_step))
+
+    print("  timing the bf16 sites (device time, L2 evicted before each call)", flush=True)
+    t = timer.run()
+    for tag, (b, n, c, cq), per_step in sites:
+        print(f"  {tag} (x{per_step} per step)")
+        k_ms, p_ms = t[f"{tag} kernel"][0], t[f"{tag} plain"][0]
+        lib_ms, lib_ops = t[f"{tag} library"]
+        b_ms, b_by = bound(k2.attention_core_bytes(b, n, c, cq, torch.bfloat16),
+                           k2.attention_core_flops(b, n, c, cq), "bf16_tensor")
+        site_line("fwd", k_ms, p_ms, b_ms, b_by,
+                  f", library {lib_ms:.4f} ms (SDPA, {sdpa_backend(lib_ops)} backend)")
+        print(f"      SDPA kernels: {sorted(name[:90] for name in lib_ops)}")
+        add_site(results, "attention_core_fwd", per_step, k_ms, p_ms, b_ms, b_by, lib_ms)
+
+
+def report_cuda_build(so) -> None:
+    """Print each kernel's registers and spills (ptxas -v, kept beside the
+    library) and the tensor-core instructions of the bf16 kernel (cuobjdump)."""
+    def label(name: str) -> str:
+        warps = re.search(r"ILi(\d+)E", name)
+        if "bf16_kernel" not in name:
+            return "f32"
+        return f"bf16, {warps.group(1)} warps" if warps else "bf16"
+
+    kernel = None
+    for line in open(str(so) + ".log").read().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            kernel = label(m.group(1))
+        elif kernel and ("registers" in line or "spill" in line):
+            print(f"    ptxas ({kernel} kernel): {line.strip()}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spills:
+                n = int(spills.group(1)) + int(spills.group(2))
+                print(f"    {kernel} kernel {'spills' if n else 'does not spill'}"
+                      f" ({n} bytes of spill stores and loads)")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("    cuobjdump not found: tensor-core instructions not counted")
+        return
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = label(line)
+        elif kernel:
+            counts[kernel] = counts.get(kernel, 0) + ("HMMA" in line)
+    print(f"    cuobjdump: HMMA instructions per kernel {counts}")
+    if not all(n for k, n in counts.items() if k.startswith("bf16")):
+        fail("a bf16 attention kernel has no HMMA (tensor-core) instruction")
 
 
 def dtype_name(dtype) -> str:
@@ -300,9 +456,7 @@ def main() -> None:
     so = build.build_cuda_library("attention")
     build.load_cuda_library("attention")
     print(f"  attention.cu -> {so.name}: {time.perf_counter() - t0:.2f} s")
-    for line in open(str(so) + ".log").read().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    ptxas: {line.strip()}")
+    report_cuda_build(so)
     t0 = time.perf_counter()
     x = torch.randn(2, 4, 4, 4, device="cuda").contiguous(memory_format=torch.channels_last)
     s = torch.randn(2, 4, device="cuda")
@@ -314,7 +468,9 @@ def main() -> None:
 
     results = {
         name: {"name": name, "route": route, "source": src, "replaces": rep,
-               "launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+               "launches": 0, "launches_per_step": 0, "max_abs_err": 0.0, "ms": 0.0,
+               "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0, "bound_by": None,
+               "share_of_bound": None, "_bound_by": {"bytes": 0.0, "operations": 0.0}}
         for name, route, src, rep in (
             ("adain_fwd", "triton", "optimalstrategiesagainstgenerativeattacks_torch/kernels/adain.py",
              "optimalstrategiesagainstgenerativeattacks_tpu/ops/pallas/adain_pallas.py:72"),
@@ -330,17 +486,28 @@ def main() -> None:
           f"(f32 atol/rtol {TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}; "
           "pass: max|err| <= atol + rtol*max|ref|)", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    check_adain(gen, results)
-    check_attention(gen, results)
+    timer = DeviceTimer()
+    check_adain(gen, results, timer)
+    check_attention(gen, results, timer)
+    del timer
     torch.cuda.synchronize()
+    for r in results.values():
+        by = r.pop("_bound_by")
+        r["bound_by"] = max(by, key=by.get)
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    print("  per flagship step: " + "; ".join(
+        f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
+        f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}, bound "
+        f"{r['bound_ms']:.4f}, share {r['share_of_bound']:.3f})" for r in results.values()))
 
     print(f"[4/5] slice parity: flagship widths, f32, TF32 off, B=2, fixed z "
           f"(tol {SLICE_TOL} x max(1, max|ref|))", flush=True)
     check_slice(args.seed)
 
     print(f"[5/5] train: {args.steps} flagship steps", flush=True)
-    counters = (k1.FWD_LAUNCHES, k1.BWD_LAUNCHES, k2.FWD_LAUNCHES)
+    counters = (k1.FWD_LAUNCHES, k1.BWD_LAUNCHES, k2.FWD_LAUNCHES, k1.NHWC_COPIES)
     launches = run_train(args.seed, args.steps, counters)
+    print(f"  layout copies in front of the AdaIN kernels: {launches.pop('adain_nhwc_copy')}")
     expected = {
         "adain_fwd": sum(ADAIN_SITES.values()) * args.steps,
         "adain_bwd": sum(ADAIN_SITES.values()) * args.steps,

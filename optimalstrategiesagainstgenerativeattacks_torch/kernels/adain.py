@@ -13,18 +13,32 @@ in one kernel, dx, dmean_s = sum_hw g and dstd_s = sum_hw g (x - mu)/(sigma + ep
 
 What bounds it on the card: memory traffic.  Each element costs a handful of
 flops against 2 (bf16) or 4 (f32) bytes read and written, far below the
-H100's ~295 flops/byte ridge, and the largest flagship site moves
-640*32*32*128 bf16 values.  The design therefore reads x in coalesced tiles
-of a channels-last tensor (contiguous along C), keeps all statistics in
-registers, and writes y once: no statistic or centred copy ever reaches
-device memory.  One program owns one (sample, channel block) and loops over
-H*W, so any spatial size works with a fixed register footprint.  The
-variance is two-pass (mean first, then the centred sum of squares); the
-re-reads of x for the later passes hit L2 at these sizes.
+H100's ~295 flops/byte ridge; ``ada_in_fwd_bytes`` and ``ada_in_bwd_bytes``
+count the bytes each kernel must move (each input read once, each output
+written once).  At the flagship sites the backward moves 34.7 MB at
+[640, 4, 4, 512] (10.4 us at 3.35 TB/s) down to 3.9 MB at [640, 32, 32, 1].
+
+Forward: one program owns one (sample, channel block) of a channels-last
+tensor (contiguous along C) and loops over H*W three times (mean, centred
+sum of squares, output); the re-reads of x hit L2 at these sizes.
+
+Backward: one pass over a resident tile.  Where a (sample, channel block)
+tile of H*W rows fits in registers (H*W <= 1024 at every flagship site),
+each program loads its tile of x and g once, takes mu, the two-pass centred
+sums sum (x - mu)^2 and sum g (x - mu) and sum g from the registers, and
+writes dx, dmean_s and dstd_s: it moves the bound's bytes and no more.  Each
+thread holds 64 elements of x and of g, and programs are small (1 to 4
+warps at the flagship sites, e.g. 16 rows x 128 channels on one warp at
+4x4x512, 12 KB moved): the reductions then stay inside a thread and a
+warp, and many programs per SM keep enough loads in flight.  Below 8
+channels the tile runs along the flattened H*W*C axis instead (contiguous,
+vectorised), with each channel's sums taken under a mask.  Larger maps
+(the VoxCeleb config's 64x64) keep a variant that loops over H*W and
+re-reads x and g from L2.
 
 The TPU kernel held a whole sample's [H, W, C] tile in VMEM and reduced it
-in one grid step; on Hopper a block has far less fast memory, so the loop
-over H*W replaces the resident tile.
+in one grid step; on Hopper registers hold a few thousand elements per
+program, so the tile is cut along C.
 
 Zero variance: when sigma == 0 the centred values are all 0 and the
 sigma-term of dx (c_i/sigma * sum g c) tends to 0; the kernel and its plain
@@ -38,6 +52,8 @@ tensors on the CPU.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from optimalstrategiesagainstgenerativeattacks_torch.kernels.build import (
@@ -47,9 +63,22 @@ from optimalstrategiesagainstgenerativeattacks_torch.kernels.build import (
 
 FWD_LAUNCHES = LaunchCounter("adain_fwd")
 BWD_LAUNCHES = LaunchCounter("adain_bwd")
+NHWC_COPIES = LaunchCounter("adain_nhwc_copy")  # layout copies in front of the kernels
 
 _SUPPORTED = (torch.float32, torch.bfloat16)
 _TRITON = {}
+
+# backward tiles: each thread holds BWD_PER_THREAD elements of x and of g
+# (8 rows x 8 channels in the resident tile), the fastest of the tiles tried
+# on an H100 (1-16 warps, 8-512 channels) at the flagship sites.  A map
+# whose tile would pass BWD_RESIDENT_MAX elements loops over H*W instead.
+BWD_PER_THREAD = 64
+BWD_RESIDENT_MAX = 16384
+_RESIDENT, _FLAT, _LOOP = 0, 1, 2
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
 
 
 def _triton_kernels():
@@ -95,63 +124,160 @@ def _triton_kernels():
             tl.store(out_ptr + offs, y.to(out_ptr.dtype.element_ty), mask=mask)
 
     @triton.jit
-    def adain_bwd_kernel(x_ptr, ss_ptr, g_ptr, dx_ptr, dm_ptr, ds_ptr, HW, C, inv_n,
-                         inv_nm1, eps, BLOCK_HW: tl.constexpr, BLOCK_C: tl.constexpr):
-        b = tl.program_id(0).to(tl.int64)
-        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        base = b * HW * C
-        rows0 = tl.arange(0, BLOCK_HW)
-        sx = tl.zeros([BLOCK_C], dtype=tl.float32)
-        sg = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for start in range(0, HW, BLOCK_HW):
-            rows = start + rows0
-            mask = (rows[:, None] < HW) & cmask[None, :]
-            offs = base + rows[:, None] * C + cols[None, :]
-            sx += tl.sum(tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32), axis=0)
-            sg += tl.sum(tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32), axis=0)
-        mean = sx * inv_n
-        g_mean = sg * inv_n
-        sdd = tl.zeros([BLOCK_C], dtype=tl.float32)
-        sgd = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for start in range(0, HW, BLOCK_HW):
-            rows = start + rows0
-            mask = (rows[:, None] < HW) & cmask[None, :]
-            offs = base + rows[:, None] * C + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            d = tl.where(mask, x - mean[None, :], 0.0)
-            sdd += tl.sum(d * d, axis=0)
-            sgd += tl.sum(g * d, axis=0)
+    def _bwd_coefs(sg, sdd, sgd, ss, inv_n, inv_nm1, eps):
+        """(a, coef, mean g, dstd): dx = a (g - mean g) - coef (x - mu)."""
         sigma = tl.sqrt(sdd * inv_nm1)
         f = sigma + eps
-        ss = tl.load(ss_ptr + b * C + cols, mask=cmask, other=0.0).to(tl.float32)
-        a = ss / f
         # sigma-term of dx, dropped where sigma == 0 (its limit)
         safe_sigma = tl.where(sigma > 0.0, sigma, 1.0)
         coef = tl.where(sigma > 0.0, ss / (f * f) * sgd * inv_nm1 / safe_sigma, 0.0)
-        for start in range(0, HW, BLOCK_HW):
-            rows = start + rows0
+        return ss / f, coef, sg * inv_n, sgd / f
+
+    @triton.jit
+    def adain_bwd_kernel(x_ptr, ss_ptr, g_ptr, dx_ptr, dm_ptr, ds_ptr, B, HW, inv_n, inv_nm1,
+                         eps, C: tl.constexpr, MODE: tl.constexpr, BLOCK_B: tl.constexpr,
+                         BLOCK_HW: tl.constexpr, BLOCK_C: tl.constexpr):
+        if MODE == 0:
+            # resident tile: [BLOCK_HW >= HW rows, BLOCK_C channels] of one sample
+            b = tl.program_id(0).to(tl.int64)
+            cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
+            cmask = cols < C
+            rows = tl.arange(0, BLOCK_HW)
             mask = (rows[:, None] < HW) & cmask[None, :]
-            offs = base + rows[:, None] * C + cols[None, :]
+            offs = b * HW * C + rows[:, None] * C + cols[None, :]
             x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
             g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            dx = a[None, :] * (g - g_mean[None, :]) - coef[None, :] * (x - mean[None, :])
+            mean = tl.sum(x, axis=0) * inv_n
+            d = tl.where(mask, x - mean[None, :], 0.0)
+            sg = tl.sum(g, axis=0)
+            sgd = tl.sum(g * d, axis=0)
+            ss = tl.load(ss_ptr + b * C + cols, mask=cmask, other=0.0).to(tl.float32)
+            a, coef, g_mean, dstd = _bwd_coefs(sg, tl.sum(d * d, axis=0), sgd, ss, inv_n,
+                                               inv_nm1, eps)
+            dx = a[None, :] * (g - g_mean[None, :]) - coef[None, :] * d
             tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
-        tl.store(dm_ptr + b * C + cols, sg, mask=cmask)
-        tl.store(ds_ptr + b * C + cols, sgd / f, mask=cmask)
+            tl.store(dm_ptr + b * C + cols, sg, mask=cmask)
+            tl.store(ds_ptr + b * C + cols, dstd, mask=cmask)
+        elif MODE == 1:
+            # flat resident tile for C < 8: BLOCK_B samples x BLOCK_HW >= HW*C
+            # elements along the contiguous H*W*C axis; channel c = element % C
+            bs = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
+            bmask = bs < B
+            e = tl.arange(0, BLOCK_HW)
+            mask = bmask[:, None] & (e[None, :] < HW * C)
+            offs = bs[:, None].to(tl.int64) * (HW * C) + e[None, :]
+            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            dx = tl.zeros([BLOCK_B, BLOCK_HW], dtype=tl.float32)
+            for c in tl.static_range(C):
+                sel = mask & ((e % C) == c)[None, :]
+                mean = tl.sum(tl.where(sel, x, 0.0), axis=1) * inv_n
+                d = tl.where(sel, x - mean[:, None], 0.0)
+                gc = tl.where(sel, g, 0.0)
+                sg = tl.sum(gc, axis=1)
+                sgd = tl.sum(gc * d, axis=1)
+                ss = tl.load(ss_ptr + bs * C + c, mask=bmask, other=0.0).to(tl.float32)
+                a, coef, g_mean, dstd = _bwd_coefs(sg, tl.sum(d * d, axis=1), sgd, ss, inv_n,
+                                                   inv_nm1, eps)
+                dx += tl.where(sel, a[:, None] * (g - g_mean[:, None]) - coef[:, None] * d, 0.0)
+                tl.store(dm_ptr + bs * C + c, sg, mask=bmask)
+                tl.store(ds_ptr + bs * C + c, dstd, mask=bmask)
+            tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
+        else:
+            # maps too large for registers: loop over H*W, re-reading x and g
+            b = tl.program_id(0).to(tl.int64)
+            cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
+            cmask = cols < C
+            base = b * HW * C
+            rows0 = tl.arange(0, BLOCK_HW)
+            sx = tl.zeros([BLOCK_C], dtype=tl.float32)
+            sg = tl.zeros([BLOCK_C], dtype=tl.float32)
+            for start in range(0, HW, BLOCK_HW):
+                rows = start + rows0
+                mask = (rows[:, None] < HW) & cmask[None, :]
+                offs = base + rows[:, None] * C + cols[None, :]
+                sx += tl.sum(tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32), axis=0)
+                sg += tl.sum(tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32), axis=0)
+            mean = sx * inv_n
+            sdd = tl.zeros([BLOCK_C], dtype=tl.float32)
+            sgd = tl.zeros([BLOCK_C], dtype=tl.float32)
+            for start in range(0, HW, BLOCK_HW):
+                rows = start + rows0
+                mask = (rows[:, None] < HW) & cmask[None, :]
+                offs = base + rows[:, None] * C + cols[None, :]
+                x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+                g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+                d = tl.where(mask, x - mean[None, :], 0.0)
+                sdd += tl.sum(d * d, axis=0)
+                sgd += tl.sum(g * d, axis=0)
+            ss = tl.load(ss_ptr + b * C + cols, mask=cmask, other=0.0).to(tl.float32)
+            a, coef, g_mean, dstd = _bwd_coefs(sg, sdd, sgd, ss, inv_n, inv_nm1, eps)
+            for start in range(0, HW, BLOCK_HW):
+                rows = start + rows0
+                mask = (rows[:, None] < HW) & cmask[None, :]
+                offs = base + rows[:, None] * C + cols[None, :]
+                x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+                g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+                dx = a[None, :] * (g - g_mean[None, :]) - coef[None, :] * (x - mean[None, :])
+                tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty), mask=mask)
+            tl.store(dm_ptr + b * C + cols, sg, mask=cmask)
+            tl.store(ds_ptr + b * C + cols, dstd, mask=cmask)
 
     _TRITON["fwd"] = adain_fwd_kernel
     _TRITON["bwd"] = adain_bwd_kernel
-    _TRITON["cdiv"] = triton.cdiv
     return _TRITON
 
 
 def _blocks(hw: int, c: int):
-    """Tile sizes: up to 64 channels (128 B of bf16) by enough rows for ~4k elements."""
-    block_c = max(2, min(64, 1 << (c - 1).bit_length()))
-    block_hw = max(16, min(4096 // block_c, 1 << (hw - 1).bit_length()))
+    """Looping tiles: up to 64 channels (128 B of bf16) by enough rows for ~4k elements."""
+    block_c = max(2, min(64, _next_pow2(c)))
+    block_hw = max(16, min(4096 // block_c, _next_pow2(hw)))
     return block_hw, block_c
+
+
+def bwd_config(b: int, hw: int, c: int) -> dict:
+    """The backward kernel's mode, grid, tile and warps for a [b, hw, c] map.
+
+    Resident: 1, 2, 4, 8 warps at H*W = 16, 64, 256, 1024 and as many
+    channels as gives each thread BWD_PER_THREAD elements, e.g. 16 rows x 128
+    channels on one warp at 4x4x512.  Flat (C < 8): one program of one warp
+    per 1024 elements.
+    """
+    if c < 8 and hw * c <= BWD_RESIDENT_MAX:
+        block_e = _next_pow2(hw * c)
+        block_b = max(1, 1024 // block_e)
+        return dict(MODE=_FLAT, grid=(-(-b // block_b),), BLOCK_B=block_b, BLOCK_HW=block_e,
+                    BLOCK_C=1, num_warps=max(1, min(8, block_b * block_e // 1024)))
+    block_hw = _next_pow2(hw)
+    if block_hw * 8 <= BWD_RESIDENT_MAX:
+        warps = min(8, max(1, math.isqrt(block_hw) // 4))
+        block_c = min(_next_pow2(c), max(8, BWD_PER_THREAD * 32 * warps // block_hw))
+        return dict(MODE=_RESIDENT, grid=(b, -(-c // block_c)), BLOCK_B=1, BLOCK_HW=block_hw,
+                    BLOCK_C=block_c, num_warps=warps)
+    block_hw, block_c = _blocks(hw, c)
+    return dict(MODE=_LOOP, grid=(b, -(-c // block_c)), BLOCK_B=1, BLOCK_HW=block_hw,
+                BLOCK_C=block_c, num_warps=4)
+
+
+def ada_in_fwd_bytes(b: int, h: int, w: int, c: int, dtype: torch.dtype) -> int:
+    """Bytes the forward must move: x and both styles read, y written, in ``dtype``."""
+    return (2 * b * h * w * c + 2 * b * c) * dtype.itemsize
+
+
+def ada_in_bwd_bytes(b: int, h: int, w: int, c: int, dtype: torch.dtype) -> int:
+    """Bytes the backward must move: x, g and std_s read and dx written in ``dtype``,
+    dmean_s and dstd_s written in f32."""
+    return (3 * b * h * w * c + b * c) * dtype.itemsize + 2 * b * c * 4
+
+
+def ada_in_fwd_flops(b: int, h: int, w: int, c: int) -> int:
+    """f32 operations of the forward: 5 per element (sum, centre, square-add, scale-shift)."""
+    return 5 * b * h * w * c
+
+
+def ada_in_bwd_flops(b: int, h: int, w: int, c: int) -> int:
+    """f32 operations of the backward: 11 per element (four sums, centre, dx)."""
+    return 11 * b * h * w * c
 
 
 def _check_cuda(name, *tensors):
@@ -163,8 +289,13 @@ def _check_cuda(name, *tensors):
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    """NCHW tensor -> contiguous [B, H, W, C] (a view for channels_last input)."""
-    return x.permute(0, 2, 3, 1).contiguous()
+    """NCHW tensor -> contiguous [B, H, W, C] (a view for channels_last input;
+    any other layout is copied, and ``NHWC_COPIES`` counts the copy)."""
+    xh = x.permute(0, 2, 3, 1)
+    if not xh.is_contiguous():
+        NHWC_COPIES.add()
+        xh = xh.contiguous()
+    return xh
 
 
 def _stats_args(x: torch.Tensor):
@@ -183,7 +314,7 @@ def ada_in_fwd_cuda(x, mean_s, std_s, eps: float = 1e-5):
     xh = _nhwc(x)
     out = torch.empty_like(xh)
     block_hw, block_c = _blocks(hw, c)
-    grid = (b, k["cdiv"](c, block_c))
+    grid = (b, -(-c // block_c))
     k["fwd"][grid](xh, mean_s.contiguous(), std_s.contiguous(), out, hw, c, inv_n, inv_nm1,
                    eps, BLOCK_HW=block_hw, BLOCK_C=block_c, num_warps=4)
     FWD_LAUNCHES.add()
@@ -203,10 +334,9 @@ def ada_in_bwd_cuda(x, std_s, g, eps: float = 1e-5):
     dx = torch.empty_like(xh)
     dm = torch.empty((b, c), device=x.device, dtype=torch.float32)
     ds = torch.empty((b, c), device=x.device, dtype=torch.float32)
-    block_hw, block_c = _blocks(hw, c)
-    grid = (b, k["cdiv"](c, block_c))
-    k["bwd"][grid](xh, std_s.contiguous(), gh, dx, dm, ds, hw, c, inv_n, inv_nm1, eps,
-                   BLOCK_HW=block_hw, BLOCK_C=block_c, num_warps=4)
+    cfg = bwd_config(b, hw, c)
+    k["bwd"][cfg.pop("grid")](xh, std_s.contiguous(), gh, dx, dm, ds, b, hw, inv_n, inv_nm1,
+                              eps, C=c, **cfg)
     BWD_LAUNCHES.add()
     return dx.permute(0, 3, 1, 2), dm, ds
 

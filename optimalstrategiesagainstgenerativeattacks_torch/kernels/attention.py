@@ -4,19 +4,22 @@ Replaces the Pallas TPU kernel ``_attn_kernel`` of
 ``optimalstrategiesagainstgenerativeattacks_tpu/ops/pallas/attention_pallas.py``
 at commit 79a0a33 (launched by ``_run_attn`` under ``self_attention_pallas``).
 The kernel source, with the note on what bounds it and how its design
-answers, is ``kernels/csrc/attention.cu``.
+answers, is ``kernels/csrc/attention.cu``: bf16 runs on tensor cores
+(``mma.sync``), f32 on a SIMT kernel.
 
     core(f, g, h)[b, j] = sum_i softmax_i(f[b] g[b]^T)[i, j] h[b, i]
 
 with f, g [B, N, CQ] and h [B, N, C]; the softmax runs over the SOURCE axis
-i, all in f32, and the output takes h's dtype.  In standard-attention terms
-it is Q = g, K = f, V = h at scale 1.
+i in f32, P is rounded to h's dtype before the second product (as the JAX
+reference's ``nn/blocks.py:SelfAttention`` rounds it; nothing changes in
+f32), and the output takes h's dtype.  In standard-attention terms it is
+Q = g, K = f, V = h at scale 1.
+
+What bounds it on the card is memory: ``attention_core_bytes`` counts the
+bytes it must move, ``attention_core_flops`` its multiply-adds.
 
 The backward is ``attention_core_bwd``: written out in torch ops, as the
 Pallas kernel's custom VJP recomputed through jnp rather than a kernel.
-The forward keeps P in f32 before the second product (as the Pallas kernel
-did); the jnp twin in ``nn/blocks.py:SelfAttention`` rounds P to the
-activation dtype first, which differs only at bf16 rounding level.
 """
 
 from __future__ import annotations
@@ -37,6 +40,16 @@ MAX_SMEM_BYTES = 232448  # per-block dynamic shared memory on sm_90
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def attention_core_bytes(b: int, n: int, c: int, cq: int, dtype: torch.dtype) -> int:
+    """Bytes the core must move: f, g and h read once, the output written once."""
+    return b * n * (2 * cq + 2 * c) * dtype.itemsize
+
+
+def attention_core_flops(b: int, n: int, c: int, cq: int) -> int:
+    """Flops of the two products, S = f g^T and P^T h (the softmax not counted)."""
+    return 2 * b * n * n * (cq + c)
+
+
 def _lib():
     lib = load_cuda_library("attention")
     if not getattr(lib, "_osga_typed", False):
@@ -46,7 +59,7 @@ def _lib():
             ctypes.c_void_p,
         ]
         lib.osga_attention_core_fwd.restype = ctypes.c_int
-        lib.osga_attention_core_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.osga_attention_core_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.osga_attention_core_smem_bytes.restype = ctypes.c_longlong
         lib.osga_error_string.argtypes = [ctypes.c_int]
         lib.osga_error_string.restype = ctypes.c_char_p
@@ -72,8 +85,8 @@ def attention_core_cuda(f, g, h):
         raise ValueError(f"attention_core: N={n} > {MAX_TOKENS} tokens")
     c = h.shape[2]
     lib = _lib()
-    if lib.osga_attention_core_smem_bytes(n, cq) > MAX_SMEM_BYTES:
-        raise ValueError(f"attention_core: N={n}, CQ={cq} exceed the shared memory")
+    if lib.osga_attention_core_smem_bytes(n, cq, c, _DTYPE_CODES[h.dtype]) > MAX_SMEM_BYTES:
+        raise ValueError(f"attention_core: N={n}, CQ={cq}, C={c} exceed the shared memory")
     out = torch.empty_like(h)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
@@ -90,9 +103,10 @@ def attention_core_cuda(f, g, h):
 
 
 def attention_core_ref(f, g, h):
-    """Plain PyTorch version of the kernel (f32 throughout, output in h's dtype)."""
+    """Plain PyTorch version of the kernel: f32 products and softmax, P rounded
+    to h's dtype before the second product, output in h's dtype."""
     s = torch.bmm(f.float(), g.float().transpose(1, 2))  # [B, i, j]
-    p = torch.softmax(s, dim=1)
+    p = torch.softmax(s, dim=1).to(h.dtype).float()
     return torch.bmm(p.transpose(1, 2), h.float()).to(h.dtype)
 
 

@@ -10,7 +10,9 @@ only the port need not have).
 
 Tolerances: f32 atol 1e-5 / rtol 1e-4 (f32 sums in another order); bf16
 atol 1e-2 / rtol 2^-6 of the largest reference entry (one bf16 rounding of
-the output).  The flagship shapes are checked by ``chip_smoke.py``.
+the output).  The flagship shapes of the bf16 attention core (tensor-core
+path) and of the AdaIN backward (one pass over a resident tile) are held
+here too; ``chip_smoke.py`` checks every flagship site in both dtypes.
 """
 
 import pytest
@@ -43,8 +45,8 @@ def _rand(gen, *shape, dtype=torch.float32):
 
 
 @DTYPES
-@pytest.mark.parametrize("bchw", [(3, 5, 4, 4), (2, 1, 32, 32), (2, 70, 9, 7)],
-                         ids=["4x4x5", "32x32x1", "9x7x70"])
+@pytest.mark.parametrize("bchw", [(3, 5, 4, 4), (2, 1, 32, 32), (2, 70, 9, 7), (2, 8, 64, 64)],
+                         ids=["4x4x5", "32x32x1", "9x7x70", "64x64x8"])
 def test_adain_kernels_match_plain_versions(gen, dtype, bchw):
     x = _rand(gen, *bchw, dtype=dtype).contiguous(memory_format=torch.channels_last)
     g = _rand(gen, *bchw, dtype=dtype).contiguous(memory_format=torch.channels_last)
@@ -79,6 +81,45 @@ def test_attention_kernel_matches_plain_version(gen, dtype, bncq):
     before = k2.FWD_LAUNCHES.count
     _close(k2.attention_core_cuda(f, g, h), k2.attention_core_ref(f, g, h), dtype)
     assert k2.FWD_LAUNCHES.count == before + 1
+
+
+# (B', N, C, CQ) of the flagship train step's attention sites
+ATTENTION_FLAGSHIP = [(1920, 64, 256, 32), (1280, 64, 256, 32), (128, 64, 256, 32),
+                      (640, 64, 128, 16), (640, 64, 256, 32), (640, 256, 128, 16)]
+
+
+@pytest.mark.parametrize("bncq", ATTENTION_FLAGSHIP + [(2, 16, 8, 1), (2, 50, 20, 3)],
+                         ids=[f"b{b}_n{n}_c{c}_cq{cq}" for b, n, c, cq in ATTENTION_FLAGSHIP]
+                         + ["n16_cq1", "n50_c20_cq3"])
+def test_attention_bf16_tensor_core_path_at_flagship_and_ragged_sites(gen, bncq):
+    b, n, c, cq = bncq
+    f = (0.5 * _rand(gen, b, n, cq)).to(torch.bfloat16)
+    g = (0.5 * _rand(gen, b, n, cq)).to(torch.bfloat16)
+    h = _rand(gen, b, n, c, dtype=torch.bfloat16)
+    got = k2.attention_core_cuda(f, g, h)
+    torch.cuda.synchronize()
+    _close(got, k2.attention_core_ref(f, g, h), torch.bfloat16)
+
+
+@pytest.mark.parametrize("bchw", [(640, 512, 4, 4), (640, 1, 32, 32)],
+                         ids=["640x4x4x512", "640x32x32x1"])
+def test_adain_bwd_resident_tile_with_a_constant_channel(gen, bchw):
+    b, c = bchw[:2]
+    x = _rand(gen, *bchw)
+    x[3, c // 2] = 0.5  # sigma == 0: the sigma-term of dx is dropped
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    g = _rand(gen, *bchw, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    ss = _rand(gen, b, c, dtype=torch.bfloat16)
+    dx, dm, ds = k1.ada_in_bwd_cuda(x, ss, g)
+    dx_ref, dm_ref, ds_ref = k1.ada_in_bwd_ref(x, ss, g)
+    assert torch.isfinite(dx).all()
+    # the constant channel's dx is ~std_s / eps larger: compare it on its own
+    const = torch.zeros_like(dx, dtype=torch.bool)
+    const[3, c // 2] = True
+    _close(dx[const], dx_ref[const], torch.bfloat16)
+    _close(dx[~const], dx_ref[~const], torch.bfloat16)
+    _close(dm, dm_ref, torch.bfloat16)
+    _close(ds, ds_ref, torch.bfloat16)
 
 
 def test_attention_kernel_refuses_what_it_does_not_take(gen):
