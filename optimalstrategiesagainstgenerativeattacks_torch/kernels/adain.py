@@ -32,7 +32,9 @@ warps at the flagship sites, e.g. 16 rows x 128 channels on one warp at
 4x4x512, 12 KB moved): the reductions then stay inside a thread and a
 warp, and many programs per SM keep enough loads in flight.  Below 8
 channels the tile runs along the flattened H*W*C axis instead (contiguous,
-vectorised), with each channel's sums taken under a mask.  Larger maps
+vectorised), with each channel's sums taken under a mask: on an H100 at
+[640, 32, 32, 1] it takes 3.9 us where the resident 1024 x 1 tile on 8
+warps takes 4.5 us (chip_smoke.py phase 3, both in one run).  Larger maps
 (the VoxCeleb config's 64x64) keep a variant that loops over H*W and
 re-reads x and g from L2.
 

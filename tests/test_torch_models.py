@@ -7,15 +7,19 @@ gammas randomised.  f32: au logits rtol 1e-4 / atol 1e-5; the im fake
 
 bf16 (both sides cast convs and linears to bf16, rounding at different
 places): au logits rtol / atol 5e-2.  The fake is not compared pixel by
-pixel there: the reference's own bf16 fake already sits up to ~0.4 from its
+pixel there: the reference's own bf16 fake already sits up to ~0.3 from its
 f32 fake at this size (AdaIN divides by small per-channel stds).  Instead
-the two bf16 fakes must agree to 5e-2 in mean absolute difference, and the
-port's bf16 fake must be no further from the f32 reference than the
-reference's bf16 fake is (within a factor of 1.5, max and mean).  The bf16
-reference runs with every bf16 rounding its code writes (XLA's
-``xla_allow_excess_precision`` off): by default XLA may keep fused
-intermediates in f32 and skip those roundings, which the port, rounding
-after each PyTorch op, never does.
+the port's bf16 fake must be no further from the f32 reference than the
+reference's bf16 fake is: in mean within a factor of 1.5 of the reference
+as XLA compiles it by default, and in max within a factor of 1 of the
+reference compiled with every bf16 rounding its code writes (XLA's
+``xla_allow_excess_precision`` off).  By default XLA may keep fused
+intermediates in f32 and skip roundings, such as the attention core's P
+rounded to bf16, that the port, rounding after each PyTorch op, makes; the
+max follows the few pixels where such a rounding is amplified.  The two
+fakes that round alike agree to 3e-2 in mean absolute difference.
+``scripts/torch_bf16_fake_readings.py`` prints the readings under both
+references.
 """
 
 import jax
@@ -111,18 +115,19 @@ def test_bf16_players_match_jax(players, inputs):
     jau, jim = jax_build(cfg16)
     state = torch_state_from(cfg16, av, iv)
     f32_fake = np.asarray(players[2].apply(iv, leaked, cfg.n, True, False, z=z))
+    default_fake = np.asarray(jim.apply(iv, leaked, cfg.n, True, False, z=z)).astype(np.float32)
     want_fake = np.asarray(_apply_as_written(jim, iv, leaked, cfg.n, True, False, z=z)).astype(
         np.float32)
-    want_logits = np.asarray(_apply_as_written(jau, av, test, si)).astype(np.float32)
+    want_logits = np.asarray(jau.apply(av, test, si)).astype(np.float32)
     with torch.no_grad():
         fake = state.im(torch.from_numpy(leaked).bfloat16(), cfg.n, True, z=torch.from_numpy(z))
         logits = state.au(torch.from_numpy(test).bfloat16(), torch.from_numpy(si).bfloat16())
     assert fake.dtype == torch.bfloat16
     fake = fake.float().numpy()
-    assert np.abs(fake - want_fake).mean() < 5e-2
-    port_err, ref_err = np.abs(fake - f32_fake), np.abs(want_fake - f32_fake)
-    assert port_err.max() <= 1.5 * ref_err.max()
-    assert port_err.mean() <= 1.5 * ref_err.mean()
+    assert np.abs(fake - want_fake).mean() < 3e-2
+    port_err = np.abs(fake - f32_fake)
+    assert port_err.mean() <= 1.5 * np.abs(default_fake - f32_fake).mean()
+    assert port_err.max() <= np.abs(want_fake - f32_fake).max()
     np.testing.assert_allclose(logits.float().numpy(), want_logits, rtol=5e-2, atol=5e-2)
 
 
