@@ -15,7 +15,9 @@ Phases (each prints its lines; the first failure exits non-zero):
               call after a write of a 128 MB buffer that evicts L2, from
               torch.profiler's CUDA kernel records (median of the calls),
               beside the bound: bytes over 3.35 TB/s or flops over the
-              peak rate, whichever is larger;
+              peak rate, whichever is larger; each AdaIN site also prints
+              both kernels' tile plans and the time of F.instance_norm,
+              the nearest library op (not the same function);
   4. slice:   the flagship impersonator and authenticator forwards in f32
               on the card (kernels) against the same models on the CPU
               (plain versions), same weights, fixed noise;
@@ -98,7 +100,16 @@ class DeviceTimer:
     the durations of the device activities (kernels, memsets, copies)
     between its marker and the next; the median over TIMED_CALLS calls.
     Returns {tag: (ms, names of the call's kernels)}.
+
+    The trace may lack some activities: on an H100, two runs of four in one
+    call found 13 and 9 fewer markers than calls when every job of a phase
+    went into one trace.  So the jobs are traced a few at a time, and a
+    trace that lacks one is taken again, up to PROFILES times.
     """
+
+    PROFILES = 3
+    JOBS_PER_PROFILE = 5
+    THROWAWAY_CALLS = 10
 
     def __init__(self):
         self.jobs = {}
@@ -108,16 +119,35 @@ class DeviceTimer:
         self.jobs[tag] = fn
 
     def run(self) -> dict:
-        from torch.profiler import ProfilerActivity, profile
-
         for fn in self.jobs.values():  # warm up: compiles, cuBLAS / cuDNN heuristics
             fn()
         torch.cuda.synchronize()
-        expected = TIMED_CALLS * len(self.jobs)
+        tags, out = list(self.jobs), {}
+        for i in range(0, len(tags), self.JOBS_PER_PROFILE):
+            group = {tag: self.jobs[tag] for tag in tags[i:i + self.JOBS_PER_PROFILE]}
+            for attempt in range(1, self.PROFILES + 1):
+                got, problem = self._profile(group)
+                if got is not None:
+                    break
+                print(f"  timer: profile {attempt} of {self.PROFILES}: {problem}", flush=True)
+            else:
+                fail(f"timer: {problem}")
+            out.update(got)
+        self.jobs.clear()
+        return out
+
+    def _profile(self, jobs: dict) -> tuple:
+        """One traced run of the jobs: ({tag: (ms, kernels)}, None), or (None, problem)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        expected = TIMED_CALLS * len(jobs)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             # throwaway calls first: the trace may miss the first activities
-            for fn in [next(iter(self.jobs.values()))] * 3 + [
-                    fn for fn in self.jobs.values() for _ in range(TIMED_CALLS)]:
+            for _ in range(self.THROWAWAY_CALLS):
+                torch.bitwise_not(self.flush, out=self.flush)
+                next(iter(jobs.values()))()
+            torch.cuda.synchronize()
+            for fn in [fn for fn in jobs.values() for _ in range(TIMED_CALLS)]:
                 torch.bitwise_not(self.flush, out=self.flush)
                 fn()
             torch.cuda.synchronize()
@@ -131,17 +161,16 @@ class DeviceTimer:
             elif calls:
                 calls[-1].append(e)
         if len(calls) < expected:
-            fail(f"timer: {len(calls)} marked calls in the trace, expected {expected} and more")
+            return None, f"{len(calls)} marked calls in the trace, expected {expected} and more"
         calls = calls[-expected:]
         out = {}
-        for k, tag in enumerate(self.jobs):
+        for k, tag in enumerate(jobs):
             mine = calls[k * TIMED_CALLS:(k + 1) * TIMED_CALLS]
             times = [sum(e.time_range.end - e.time_range.start for e in c) for c in mine]
             if min(times) <= 0.0 or len({len(c) for c in mine}) != 1:
-                fail(f"timer: {tag}: calls with no device time, or that ran different kernels")
+                return None, f"{tag}: calls with no device time, or that ran different kernels"
             out[tag] = (statistics.median(times) / 1e3, {e.name for c in mine for e in c})
-        self.jobs.clear()
-        return out
+        return out, None
 
 
 def sdpa_backend(kernels: set) -> str:
@@ -169,9 +198,20 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float, rtol: 
 
 
 def site_line(tag: str, k_ms: float, p_ms: float, bound_ms: float, bound_by: str,
-              lib: str = "") -> None:
+              lib: str = "", note: str = "") -> None:
     print(f"    {tag}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, bound "
-          f"{bound_ms * 1e3:.2f} us ({bound_by}), share of bound {bound_ms / k_ms:.3f}")
+          f"{bound_ms * 1e3:.2f} us ({bound_by}), share of bound {bound_ms / k_ms:.3f}{note}")
+
+
+def tile_text(cfg: dict) -> str:
+    """An AdaIN tile plan: mode, tile [samples x rows (or elements) x channels],
+    warps, elements of each input a thread, programs."""
+    from optimalstrategiesagainstgenerativeattacks_torch.kernels.adain import MODE_NAMES
+
+    tile = cfg["BLOCK_B"] * cfg["BLOCK_HW"] * cfg["BLOCK_C"]
+    return (f"{MODE_NAMES[cfg['MODE']]} {cfg['BLOCK_B']}x{cfg['BLOCK_HW']}x{cfg['BLOCK_C']}, "
+            f"{cfg['num_warps']} warps, {tile // (32 * cfg['num_warps'])} a thread, "
+            f"{math.prod(cfg['grid'])} programs")
 
 
 def add_site(results: dict, name: str, per_step: int, k_ms: float, p_ms: float,
@@ -187,6 +227,8 @@ def add_site(results: dict, name: str, per_step: int, k_ms: float, p_ms: float,
 
 
 def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> None:
+    import torch.nn.functional as F
+
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import adain as k1
 
     sites = []
@@ -215,6 +257,11 @@ def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> None
             timer.add(f"{tag} fwd plain", lambda x=x, ms=ms, ss=ss: k1.ada_in_ref(x, ms, ss))
             timer.add(f"{tag} bwd", lambda x=x, ss=ss, g=g: k1.ada_in_bwd_cuda(x, ss, g))
             timer.add(f"{tag} bwd plain", lambda x=x, ss=ss, g=g: k1.ada_in_bwd_ref(x, ss, g))
+            # yardstick only: per-(sample, channel) statistics as the channels of
+            # one instance, NCHW, with the styles as its affine
+            xn = x.contiguous().view(1, b * c, h, w)
+            timer.add(f"{tag} instance_norm", lambda xn=xn, ms=ms, ss=ss: F.instance_norm(
+                xn, weight=ss.reshape(-1), bias=ms.reshape(-1)))
             sites.append((tag, (b, h, w, c), per_step))
 
     print("  timing the bf16 sites (device time, L2 evicted before each call)", flush=True)
@@ -228,8 +275,13 @@ def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> None
                  k1.ada_in_bwd_flops(b, h, w, c))):
             k_ms, p_ms = t[f"{tag} {d}"][0], t[f"{tag} {d} plain"][0]
             b_ms, b_by = bound(n_bytes, flops, "f32")
-            site_line(d, k_ms, p_ms, b_ms, b_by)
+            plan = k1.tile_config(b, h * w, c, k1.PER_THREAD[d])
+            site_line(d, k_ms, p_ms, b_ms, b_by, note=f"; tile {tile_text(plan)}")
             add_site(results, name, per_step, k_ms, p_ms, b_ms, b_by)
+        in_ms, in_ops = t[f"{tag} instance_norm"]
+        print(f"    nearest library op, not the same function (biased variance, eps inside "
+              f"the sqrt): F.instance_norm over [1, B'C, H, W] NCHW {in_ms:.4f} ms, kernels "
+              f"{sorted(name[:90] for name in in_ops)}")
 
 
 def check_attention(gen: torch.Generator, results: dict, timer: DeviceTimer) -> None:

@@ -18,9 +18,25 @@ count the bytes each kernel must move (each input read once, each output
 written once).  At the flagship sites the backward moves 34.7 MB at
 [640, 4, 4, 512] (10.4 us at 3.35 TB/s) down to 3.9 MB at [640, 32, 32, 1].
 
-Forward: one program owns one (sample, channel block) of a channels-last
-tensor (contiguous along C) and loops over H*W three times (mean, centred
-sum of squares, output); the re-reads of x hit L2 at these sizes.
+One tile planner (``tile_config``) serves both kernels, with three modes:
+resident, flat (C < 8) and loop (maps past RESIDENT_MAX elements a tile).
+Each direction differs only in how many elements a thread holds
+(``PER_THREAD``).
+
+Forward: one pass over a resident tile.  One program owns one (sample,
+channel block) tile of H*W rows of a channels-last tensor (contiguous along
+C, so each thread loads 16-byte vectors), loads x once, takes mu and then
+the centred sum (x - mu)^2 from its registers, loads the two style rows and
+writes y: it moves the bound's bytes and no more, where the loop it
+replaces read x three times.  Holding x alone, each thread takes 128
+elements on the backward's 1, 2, 4 warps at the flagship sites (16 rows x
+256 channels on one warp at 4x4x512).  A tile row narrower than 64
+channels (128 bytes of bf16) reads part of a cache line and costs time:
+on an H100 at [640, 16, 16, 128] the 256 x 64 tile takes 35 us, 256 x 32
+41 us and 256 x 8 164 us (scripts/torch_adain_tiles.py).  Below 8
+channels it takes the backward's flat tile along H*W*C (one warp per 1024
+elements, the fastest there), and maps past the resident limit loop over
+H*W three times, re-reading x from L2.
 
 Backward: one pass over a resident tile.  Where a (sample, channel block)
 tile of H*W rows fits in registers (H*W <= 1024 at every flagship site),
@@ -70,13 +86,16 @@ NHWC_COPIES = LaunchCounter("adain_nhwc_copy")  # layout copies in front of the 
 _SUPPORTED = (torch.float32, torch.bfloat16)
 _TRITON = {}
 
-# backward tiles: each thread holds BWD_PER_THREAD elements of x and of g
-# (8 rows x 8 channels in the resident tile), the fastest of the tiles tried
-# on an H100 (1-16 warps, 8-512 channels) at the flagship sites.  A map
-# whose tile would pass BWD_RESIDENT_MAX elements loops over H*W instead.
-BWD_PER_THREAD = 64
-BWD_RESIDENT_MAX = 16384
+# elements of each input (x; x and g) a thread holds in the (resident, flat)
+# tile, by direction, from sweeps on an H100 at the flagship sites: the
+# backward's fastest of 1-16 warps and 8-512 channels; the forward within
+# 4 % of its fastest of 32, 64, 128 a thread on 1-8 warps
+# (scripts/torch_adain_tiles.py).  A map whose tile would pass RESIDENT_MAX
+# elements loops over H*W instead.
+PER_THREAD = {"fwd": (128, 32), "bwd": (64, 32)}
+RESIDENT_MAX = 16384
 _RESIDENT, _FLAT, _LOOP = 0, 1, 2
+MODE_NAMES = ("resident", "flat", "loop")
 
 
 def _next_pow2(n: int) -> int:
@@ -90,40 +109,79 @@ def _triton_kernels():
     triton, tl = import_triton()
 
     @triton.jit
-    def adain_fwd_kernel(x_ptr, ms_ptr, ss_ptr, out_ptr, HW, C, inv_n, inv_nm1, eps,
+    def adain_fwd_kernel(x_ptr, ms_ptr, ss_ptr, out_ptr, B, HW, inv_n, inv_nm1, eps,
+                         C: tl.constexpr, MODE: tl.constexpr, BLOCK_B: tl.constexpr,
                          BLOCK_HW: tl.constexpr, BLOCK_C: tl.constexpr):
-        b = tl.program_id(0).to(tl.int64)
-        cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        base = b * HW * C
-        rows0 = tl.arange(0, BLOCK_HW)
-        acc = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for start in range(0, HW, BLOCK_HW):
-            rows = start + rows0
+        if MODE == 0:
+            # resident tile: [BLOCK_HW >= HW rows, BLOCK_C channels] of one sample
+            b = tl.program_id(0).to(tl.int64)
+            cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
+            cmask = cols < C
+            rows = tl.arange(0, BLOCK_HW)
             mask = (rows[:, None] < HW) & cmask[None, :]
-            offs = base + rows[:, None] * C + cols[None, :]
+            offs = b * HW * C + rows[:, None] * C + cols[None, :]
             x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            acc += tl.sum(x, axis=0)
-        mean = acc * inv_n
-        acc2 = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for start in range(0, HW, BLOCK_HW):
-            rows = start + rows0
-            mask = (rows[:, None] < HW) & cmask[None, :]
-            offs = base + rows[:, None] * C + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            mean = tl.sum(x, axis=0) * inv_n
             d = tl.where(mask, x - mean[None, :], 0.0)
-            acc2 += tl.sum(d * d, axis=0)
-        sigma = tl.sqrt(acc2 * inv_nm1)
-        ms = tl.load(ms_ptr + b * C + cols, mask=cmask, other=0.0).to(tl.float32)
-        ss = tl.load(ss_ptr + b * C + cols, mask=cmask, other=0.0).to(tl.float32)
-        scale = ss / (sigma + eps)
-        for start in range(0, HW, BLOCK_HW):
-            rows = start + rows0
-            mask = (rows[:, None] < HW) & cmask[None, :]
-            offs = base + rows[:, None] * C + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            y = (x - mean[None, :]) * scale[None, :] + ms[None, :]
+            sigma = tl.sqrt(tl.sum(d * d, axis=0) * inv_nm1)
+            ms = tl.load(ms_ptr + b * C + cols, mask=cmask, other=0.0).to(tl.float32)
+            ss = tl.load(ss_ptr + b * C + cols, mask=cmask, other=0.0).to(tl.float32)
+            y = d * (ss / (sigma + eps))[None, :] + ms[None, :]
             tl.store(out_ptr + offs, y.to(out_ptr.dtype.element_ty), mask=mask)
+        elif MODE == 1:
+            # flat resident tile for C < 8: BLOCK_B samples x BLOCK_HW >= HW*C
+            # elements along the contiguous H*W*C axis; channel c = element % C
+            bs = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
+            bmask = bs < B
+            e = tl.arange(0, BLOCK_HW)
+            mask = bmask[:, None] & (e[None, :] < HW * C)
+            offs = bs[:, None].to(tl.int64) * (HW * C) + e[None, :]
+            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            y = tl.zeros([BLOCK_B, BLOCK_HW], dtype=tl.float32)
+            for c in tl.static_range(C):
+                sel = mask & ((e % C) == c)[None, :]
+                mean = tl.sum(tl.where(sel, x, 0.0), axis=1) * inv_n
+                d = tl.where(sel, x - mean[:, None], 0.0)
+                sigma = tl.sqrt(tl.sum(d * d, axis=1) * inv_nm1)
+                ms = tl.load(ms_ptr + bs * C + c, mask=bmask, other=0.0).to(tl.float32)
+                ss = tl.load(ss_ptr + bs * C + c, mask=bmask, other=0.0).to(tl.float32)
+                y += tl.where(sel, d * (ss / (sigma + eps))[:, None] + ms[:, None], 0.0)
+            tl.store(out_ptr + offs, y.to(out_ptr.dtype.element_ty), mask=mask)
+        else:
+            # maps too large for registers: loop over H*W three times (mean,
+            # centred sum of squares, output), re-reading x from L2
+            b = tl.program_id(0).to(tl.int64)
+            cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
+            cmask = cols < C
+            base = b * HW * C
+            rows0 = tl.arange(0, BLOCK_HW)
+            acc = tl.zeros([BLOCK_C], dtype=tl.float32)
+            for start in range(0, HW, BLOCK_HW):
+                rows = start + rows0
+                mask = (rows[:, None] < HW) & cmask[None, :]
+                offs = base + rows[:, None] * C + cols[None, :]
+                x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+                acc += tl.sum(x, axis=0)
+            mean = acc * inv_n
+            acc2 = tl.zeros([BLOCK_C], dtype=tl.float32)
+            for start in range(0, HW, BLOCK_HW):
+                rows = start + rows0
+                mask = (rows[:, None] < HW) & cmask[None, :]
+                offs = base + rows[:, None] * C + cols[None, :]
+                x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+                d = tl.where(mask, x - mean[None, :], 0.0)
+                acc2 += tl.sum(d * d, axis=0)
+            sigma = tl.sqrt(acc2 * inv_nm1)
+            ms = tl.load(ms_ptr + b * C + cols, mask=cmask, other=0.0).to(tl.float32)
+            ss = tl.load(ss_ptr + b * C + cols, mask=cmask, other=0.0).to(tl.float32)
+            scale = ss / (sigma + eps)
+            for start in range(0, HW, BLOCK_HW):
+                rows = start + rows0
+                mask = (rows[:, None] < HW) & cmask[None, :]
+                offs = base + rows[:, None] * C + cols[None, :]
+                x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+                y = (x - mean[None, :]) * scale[None, :] + ms[None, :]
+                tl.store(out_ptr + offs, y.to(out_ptr.dtype.element_ty), mask=mask)
 
     @triton.jit
     def _bwd_coefs(sg, sdd, sgd, ss, inv_n, inv_nm1, eps):
@@ -237,28 +295,33 @@ def _blocks(hw: int, c: int):
     return block_hw, block_c
 
 
-def bwd_config(b: int, hw: int, c: int) -> dict:
-    """The backward kernel's mode, grid, tile and warps for a [b, hw, c] map.
+def tile_config(b: int, hw: int, c: int, per_thread: tuple, warps: int | None = None) -> dict:
+    """Mode, grid, tile and warps of an AdaIN kernel over a [b, hw, c] map.
 
-    Resident: 1, 2, 4, 8 warps at H*W = 16, 64, 256, 1024 and as many
-    channels as gives each thread BWD_PER_THREAD elements, e.g. 16 rows x 128
-    channels on one warp at 4x4x512.  Flat (C < 8): one program of one warp
-    per 1024 elements.
+    ``per_thread`` is (resident, flat): the elements of each input a thread
+    holds.  Resident (C >= 8): one (sample, channel block) tile of
+    BLOCK_HW >= H*W rows, by default on 1, 2, 4, 8 warps at H*W = 16, 64,
+    256, 1024, with as many channels as fill each thread, e.g. 16 rows x
+    128 channels on one warp at 4x4x512 for 64 a thread.  Flat (C < 8):
+    BLOCK_B samples x BLOCK_HW >= H*W*C elements, on as many warps as the
+    sample needs and at least one.  Loop: maps past RESIDENT_MAX elements.
+    ``warps`` replaces the default warps (the tile sweep sets it).
     """
-    if c < 8 and hw * c <= BWD_RESIDENT_MAX:
+    if c < 8 and hw * c <= RESIDENT_MAX:
         block_e = _next_pow2(hw * c)
-        block_b = max(1, 1024 // block_e)
+        warps = warps or max(1, min(8, block_e // (32 * per_thread[1])))
+        block_b = max(1, per_thread[1] * 32 * warps // block_e)
         return dict(MODE=_FLAT, grid=(-(-b // block_b),), BLOCK_B=block_b, BLOCK_HW=block_e,
-                    BLOCK_C=1, num_warps=max(1, min(8, block_b * block_e // 1024)))
+                    BLOCK_C=1, num_warps=warps)
     block_hw = _next_pow2(hw)
-    if block_hw * 8 <= BWD_RESIDENT_MAX:
-        warps = min(8, max(1, math.isqrt(block_hw) // 4))
-        block_c = min(_next_pow2(c), max(8, BWD_PER_THREAD * 32 * warps // block_hw))
+    if block_hw * 8 <= RESIDENT_MAX:
+        warps = warps or min(8, max(1, math.isqrt(block_hw) // 4))
+        block_c = min(_next_pow2(c), max(8, per_thread[0] * 32 * warps // block_hw))
         return dict(MODE=_RESIDENT, grid=(b, -(-c // block_c)), BLOCK_B=1, BLOCK_HW=block_hw,
                     BLOCK_C=block_c, num_warps=warps)
     block_hw, block_c = _blocks(hw, c)
     return dict(MODE=_LOOP, grid=(b, -(-c // block_c)), BLOCK_B=1, BLOCK_HW=block_hw,
-                BLOCK_C=block_c, num_warps=4)
+                BLOCK_C=block_c, num_warps=warps or 4)
 
 
 def ada_in_fwd_bytes(b: int, h: int, w: int, c: int, dtype: torch.dtype) -> int:
@@ -305,8 +368,12 @@ def _stats_args(x: torch.Tensor):
     return hw, 1.0 / hw, 1.0 / max(hw - 1, 1)
 
 
-def ada_in_fwd_cuda(x, mean_s, std_s, eps: float = 1e-5):
-    """Launch the forward kernel.  x: NCHW (ideally channels_last); styles [B, C]."""
+def ada_in_fwd_cuda(x, mean_s, std_s, eps: float = 1e-5, tile: dict | None = None):
+    """Launch the forward kernel.  x: NCHW (ideally channels_last); styles [B, C].
+
+    ``tile``: a plan from ``tile_config`` to launch in place of the planner's
+    own (the tile sweep passes its candidates).
+    """
     _check_cuda("ada_in", x, mean_s, std_s)
     b, c = x.shape[0], x.shape[1]
     if mean_s.shape != (b, c) or std_s.shape != (b, c):
@@ -315,10 +382,9 @@ def ada_in_fwd_cuda(x, mean_s, std_s, eps: float = 1e-5):
     hw, inv_n, inv_nm1 = _stats_args(x)
     xh = _nhwc(x)
     out = torch.empty_like(xh)
-    block_hw, block_c = _blocks(hw, c)
-    grid = (b, -(-c // block_c))
-    k["fwd"][grid](xh, mean_s.contiguous(), std_s.contiguous(), out, hw, c, inv_n, inv_nm1,
-                   eps, BLOCK_HW=block_hw, BLOCK_C=block_c, num_warps=4)
+    cfg = dict(tile or tile_config(b, hw, c, PER_THREAD["fwd"]))
+    k["fwd"][cfg.pop("grid")](xh, mean_s.contiguous(), std_s.contiguous(), out, b, hw, inv_n,
+                              inv_nm1, eps, C=c, **cfg)
     FWD_LAUNCHES.add()
     return out.permute(0, 3, 1, 2)
 
@@ -336,7 +402,7 @@ def ada_in_bwd_cuda(x, std_s, g, eps: float = 1e-5):
     dx = torch.empty_like(xh)
     dm = torch.empty((b, c), device=x.device, dtype=torch.float32)
     ds = torch.empty((b, c), device=x.device, dtype=torch.float32)
-    cfg = bwd_config(b, hw, c)
+    cfg = tile_config(b, hw, c, PER_THREAD["bwd"])
     k["bwd"][cfg.pop("grid")](xh, std_s.contiguous(), gh, dx, dm, ds, b, hw, inv_n, inv_nm1,
                               eps, C=c, **cfg)
     BWD_LAUNCHES.add()

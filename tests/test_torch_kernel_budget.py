@@ -8,8 +8,8 @@
   the unrounded core misses both.  In f32 the rounding changes nothing.
 * The byte counts the bounds are built from: each input read once, each
   output written once, at every site of the flagship train step.
-* The AdaIN backward's tile plan: one pass over a resident tile at every
-  flagship site.
+* The AdaIN kernels' tile plans, forward and backward from one planner:
+  one pass over a resident tile at every flagship site.
 """
 
 import jax
@@ -80,6 +80,15 @@ K2_SITES = {(1920, 64, 256, 32): 42.3, (1280, 64, 256, 32): 28.2, (128, 64, 256,
             (640, 64, 128, 16): 7.0, (640, 64, 256, 32): 14.1, (640, 256, 128, 16): 28.2}
 K1B_SITES = {(640, 4, 4, 512): 10.4, (640, 8, 8, 256): 19.3, (640, 16, 16, 128): 37.8,
              (640, 32, 32, 1): 1.2}
+K1_SITES = {(640, 4, 4, 512): 6.7, (640, 8, 8, 256): 12.7, (640, 16, 16, 128): 25.1,
+            (640, 32, 32, 1): 0.8}
+SITE_IDS = ["4x4x512", "8x8x256", "16x16x128", "32x32x1"]
+# K1b's tiles at those sites (mode, grid, block, warps), the fastest of its sweep
+K1B_TILES = {(640, 4, 4, 512): (0, (640, 4), (1, 16, 128), 1),
+             (640, 8, 8, 256): (0, (640, 4), (1, 64, 64), 2),
+             (640, 16, 16, 128): (0, (640, 4), (1, 256, 32), 4),
+             (640, 32, 32, 1): (1, (640,), (1, 1024, 1), 1)}
+DIRECTIONS = pytest.mark.parametrize("direction", ["fwd", "bwd"])
 K2_PER_STEP = {(1920, 64, 256, 32): 2, (1280, 64, 256, 32): 2, (128, 64, 256, 32): 2,
                (640, 64, 128, 16): 1, (640, 64, 256, 32): 1, (640, 256, 128, 16): 1}
 K1_PER_STEP = {(640, 4, 4, 512): 11, (640, 8, 8, 256): 2, (640, 16, 16, 128): 2,
@@ -107,11 +116,18 @@ def test_attention_core_bound_per_site(site):
     assert k2.attention_core_flops(*site) / 989e12 * 1e6 < K2_SITES[site]
 
 
-@pytest.mark.parametrize("site", list(K1B_SITES), ids=["4x4x512", "8x8x256", "16x16x128",
-                                                       "32x32x1"])
+@pytest.mark.parametrize("site", list(K1B_SITES), ids=SITE_IDS)
 def test_ada_in_bwd_bound_per_site(site):
     assert round(_us(k1.ada_in_bwd_bytes(*site, torch.bfloat16)), 1) == K1B_SITES[site]
     assert k1.ada_in_bwd_flops(*site) / 67e12 * 1e6 < K1B_SITES[site]
+
+
+@pytest.mark.parametrize("site", list(K1_SITES), ids=SITE_IDS)
+def test_ada_in_fwd_bound_per_site(site):
+    bytes_us = _us(k1.ada_in_fwd_bytes(*site, torch.bfloat16))
+    assert round(bytes_us, 1) == K1_SITES[site]
+    # memory bounds it: the flops take less at the f32 peak
+    assert k1.ada_in_fwd_flops(*site) / 67e12 * 1e6 < bytes_us
 
 
 def test_bounds_summed_over_the_flagship_step():
@@ -122,18 +138,23 @@ def test_bounds_summed_over_the_flagship_step():
         0.196, 0.229, 0.150)
 
 
-@pytest.mark.parametrize("site", list(K1B_SITES), ids=["4x4x512", "8x8x256", "16x16x128",
-                                                       "32x32x1"])
-def test_ada_in_bwd_tile_is_resident_at_every_flagship_site(site):
+@DIRECTIONS
+@pytest.mark.parametrize("site", list(K1B_SITES), ids=SITE_IDS)
+def test_ada_in_tile_is_resident_at_every_flagship_site(direction, site):
     b, h, w, c = site
-    cfg = k1.bwd_config(b, h * w, c)
+    per_thread = k1.PER_THREAD[direction]
+    cfg = k1.tile_config(b, h * w, c, per_thread)
     assert cfg["MODE"] in (0, 1)  # resident tile or flat resident tile, never the loop
     assert cfg["BLOCK_HW"] >= (h * w if cfg["MODE"] == 0 else h * w * c)
     programs = int(np.prod(cfg["grid"]))
     tile = cfg["BLOCK_B"] * cfg["BLOCK_HW"] * cfg["BLOCK_C"]
     assert programs * tile >= b * h * w * c  # the grid covers the map
-    assert tile // (32 * cfg["num_warps"]) <= k1.BWD_PER_THREAD
+    assert tile // (32 * cfg["num_warps"]) <= per_thread[cfg["MODE"]]
+    if direction == "bwd":  # the shared planner keeps K1b's tiles
+        assert (cfg["MODE"], cfg["grid"], (cfg["BLOCK_B"], cfg["BLOCK_HW"], cfg["BLOCK_C"]),
+                cfg["num_warps"]) == K1B_TILES[site]
 
 
-def test_ada_in_bwd_loops_where_the_tile_would_not_fit():
-    assert k1.bwd_config(2, 64 * 64, 64)["MODE"] == 2
+@DIRECTIONS
+def test_ada_in_loops_where_the_tile_would_not_fit(direction):
+    assert k1.tile_config(2, 64 * 64, 64, k1.PER_THREAD[direction])["MODE"] == 2

@@ -11,8 +11,8 @@ only the port need not have).
 Tolerances: f32 atol 1e-5 / rtol 1e-4 (f32 sums in another order); bf16
 atol 1e-2 / rtol 2^-6 of the largest reference entry (one bf16 rounding of
 the output).  The flagship shapes of the bf16 attention core (tensor-core
-path) and of the AdaIN backward (one pass over a resident tile) are held
-here too; ``chip_smoke.py`` checks every flagship site in both dtypes.  The
+path) and of both AdaIN kernels (one pass over a resident tile) are held
+here too, and the AdaIN shapes reach each of the kernels' three tile modes; ``chip_smoke.py`` checks every flagship site in both dtypes.  The
 bf16 attention kernel must also round P as its plain version does: at least
 99 % of its outputs equal to the plain version's, a share the same core
 with P left in f32 misses.
@@ -47,10 +47,18 @@ def _rand(gen, *shape, dtype=torch.float32):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
 
+# the tile mode both kernels take at each shape: flat, flat, resident, loop
+ADAIN_MODES = {(3, 5, 4, 4): "flat", (2, 1, 32, 32): "flat", (2, 70, 9, 7): "resident",
+               (2, 8, 64, 64): "loop"}
+
+
 @DTYPES
-@pytest.mark.parametrize("bchw", [(3, 5, 4, 4), (2, 1, 32, 32), (2, 70, 9, 7), (2, 8, 64, 64)],
-                         ids=["4x4x5", "32x32x1", "9x7x70", "64x64x8"])
+@pytest.mark.parametrize("bchw", list(ADAIN_MODES), ids=["4x4x5", "32x32x1", "9x7x70", "64x64x8"])
 def test_adain_kernels_match_plain_versions(gen, dtype, bchw):
+    b, c, h, w = bchw
+    for per_thread in k1.PER_THREAD.values():
+        mode = k1.tile_config(b, h * w, c, per_thread)["MODE"]
+        assert k1.MODE_NAMES[mode] == ADAIN_MODES[bchw]
     x = _rand(gen, *bchw, dtype=dtype).contiguous(memory_format=torch.channels_last)
     g = _rand(gen, *bchw, dtype=dtype).contiguous(memory_format=torch.channels_last)
     ms, ss = _rand(gen, *bchw[:2], dtype=dtype), _rand(gen, *bchw[:2], dtype=dtype)
@@ -147,19 +155,24 @@ def test_attention_bf16_launches_on_every_device(gen):
 
 @pytest.mark.parametrize("bchw", [(640, 512, 4, 4), (640, 1, 32, 32)],
                          ids=["640x4x4x512", "640x32x32x1"])
-def test_adain_bwd_resident_tile_with_a_constant_channel(gen, bchw):
+def test_adain_resident_tiles_with_a_constant_channel(gen, bchw):
     b, c = bchw[:2]
     x = _rand(gen, *bchw)
-    x[3, c // 2] = 0.5  # sigma == 0: the sigma-term of dx is dropped
+    x[3, c // 2] = 0.5  # sigma == 0: y = mean_s, and the sigma-term of dx is dropped
     x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     g = _rand(gen, *bchw, dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    ss = _rand(gen, b, c, dtype=torch.bfloat16)
+    ms, ss = _rand(gen, b, c, dtype=torch.bfloat16), _rand(gen, b, c, dtype=torch.bfloat16)
+    const = torch.zeros_like(x, dtype=torch.bool)
+    const[3, c // 2] = True
+    y, y_ref = k1.ada_in_fwd_cuda(x, ms, ss), k1.ada_in_ref(x, ms, ss)
+    assert torch.isfinite(y).all()
+    _close(y[const], y_ref[const], torch.bfloat16)
+    _close(y[const], ms[3, c // 2].expand(int(const.sum())), torch.bfloat16)
+    _close(y[~const], y_ref[~const], torch.bfloat16)
     dx, dm, ds = k1.ada_in_bwd_cuda(x, ss, g)
     dx_ref, dm_ref, ds_ref = k1.ada_in_bwd_ref(x, ss, g)
     assert torch.isfinite(dx).all()
     # the constant channel's dx is ~std_s / eps larger: compare it on its own
-    const = torch.zeros_like(dx, dtype=torch.bool)
-    const[3, c // 2] = True
     _close(dx[const], dx_ref[const], torch.bfloat16)
     _close(dx[~const], dx_ref[~const], torch.bfloat16)
     _close(dm, dm_ref, torch.bfloat16)
