@@ -1,6 +1,6 @@
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--steps N]
+    python3 chip_smoke.py [--seed N] [--steps N] [--vox_steps N]
 
 Phases (each prints its lines; the first failure exits non-zero):
   1. card:    require CUDA; print the card's name and power limit;
@@ -9,25 +9,38 @@ Phases (each prints its lines; the first failure exits non-zero):
               the tensor-core instructions of the bf16 attention kernel
               (cuobjdump);
   3. kernels: each kernel against its plain PyTorch version at every site
-              the flagship train step gives it, in bf16 and f32; then, in
-              bf16, the device time of the kernel, its plain version and
-              (attention) the one PyTorch call for the same function, each
-              call after a write of a 128 MB buffer that evicts L2, from
-              torch.profiler's CUDA kernel records (median of the calls),
-              beside the bound: bytes over 3.35 TB/s or flops over the
-              peak rate, whichever is larger; each AdaIN site also prints
-              both kernels' tile plans and the time of F.instance_norm,
-              the nearest library op (not the same function);
+              the flagship and the VoxCeleb train steps give it, in bf16
+              and f32; then, in bf16, the device time of the kernel, its
+              plain version and (attention) the one PyTorch call for the
+              same function, each call after a write of a 128 MB buffer
+              that evicts L2, from torch.profiler's CUDA kernel records
+              (median of the calls), beside the bound: bytes over 3.35 TB/s
+              or flops over the peak rate, whichever is larger; each AdaIN
+              site also prints both kernels' tile plans and the time of
+              F.instance_norm, the nearest library op (not the same
+              function);
   4. slice:   the flagship impersonator and authenticator forwards in f32
               on the card (kernels) against the same models on the CPU
               (plain versions), same weights, fixed noise;
-  5. train:   flagship train steps (B=128, 32x32x1, style 512, bf16) on
+  5. R1:      the R1 penalty and the authenticator's parameter gradients at
+              the VoxCeleb widths in f32 on the card (kernels, and the
+              attention core's backward differentiated again) against the
+              same on the CPU (plain versions), same weights and inputs;
+  6. train:   flagship train steps (B=128, 32x32x1, style 512, bf16) on
               uint8 episodes drawn from --seed; metrics must be finite and
               every kernel of the path must have launched its expected
-              count; prints steps/s and images/s.
+              count; prints steps/s and images/s;
+  7. vox:     the VoxCeleb config (B=128, 64x64x3, style 512, R1 with
+              reg_param 10, bf16) through the loop, ``train_gim_imgs``, on
+              an in-memory uint8 dataset drawn from --seed: a checkpoint
+              inside the run, the step-0 images, diagnostics and eval,
+              then ``sample`` and ``eval_step`` once each, steady steps
+              (steps/s, images/s, peak memory) and a resume from the
+              checkpoint for one step; every launch count must be the one
+              expected.
 The second-to-last line is a JSON summary of the kernels, with times per
-flagship step (sum over sites of ms x launches per step); the last line is
-{"ok": true, "device": {...}}.
+flagship step and per VoxCeleb step (sum over sites of ms x launches per
+step); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -63,8 +76,39 @@ ATTENTION_SITES = {  # (B', N, C, CQ): forward launches per step
     (640, 64, 256, 32): 1,    # img2img down stage
     (640, 256, 128, 16): 1,   # img2img up stage
 }
+# per-step launches at the VoxCeleb config (64x64x3), by site shape
+VOX_ADAIN_SITES = {
+    (640, 512, 4, 4): 11,     # 5 res blocks x 2, up_0 first
+    (640, 256, 8, 8): 2,      # up_0 second, up_1 first
+    (640, 128, 16, 16): 2,    # up_1 second, up_2 first
+    (640, 64, 32, 32): 2,     # up_2 second, up_3 first
+    (640, 3, 64, 64): 1,      # up_3 second
+}
+VOX_ATTENTION_SITES = {
+    (1920, 256, 128, 16): 2,  # authenticator encoders, au phase (and under R1's double backward)
+    (1280, 256, 128, 16): 2,  # frozen authenticator encoders, im phase
+    (128, 256, 128, 16): 2,   # impersonator encoders
+    (640, 64, 256, 32): 1,    # env decoder
+    (640, 256, 128, 16): 2,   # img2img down and up stages
+}
+# launches of one call of each entry point at the VoxCeleb config with B=128
+# (sample: one episode); the kernels' names as their LaunchCounters have them
+VOX_LAUNCHES = {
+    "train_step": {"adain_fwd": sum(VOX_ADAIN_SITES.values()),
+                   "adain_bwd": sum(VOX_ADAIN_SITES.values()),
+                   "attention_core_fwd": sum(VOX_ATTENTION_SITES.values())},
+    # the impersonator's forward (all AdaIN sites, 5 attention) and 4 encoder passes
+    "eval_step": {"adain_fwd": sum(VOX_ADAIN_SITES.values()), "adain_bwd": 0,
+                  "attention_core_fwd": 9},
+    "diag": {"adain_fwd": 0, "adain_bwd": 0, "attention_core_fwd": 2},
+    "sample": {"adain_fwd": sum(VOX_ADAIN_SITES.values()), "adain_bwd": 0,
+               "attention_core_fwd": 5},
+}
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2.0 ** -6)}  # (atol, rtol)
 SLICE_TOL = 1e-3  # f32 forward, card vs CPU, TF32 off: |err| <= tol * max(1, max|ref|)
+# f32 R1 penalty and authenticator gradients, card vs CPU, TF32 off: per tensor
+# |err| <= R1_TOL * max|ref| of the tensor + R1_TOL * 1e-3 * max|ref| of the player
+R1_TOL = 1e-3
 
 # NVIDIA H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -214,27 +258,43 @@ def tile_text(cfg: dict) -> str:
             f"{math.prod(cfg['grid'])} programs")
 
 
-def add_site(results: dict, name: str, per_step: int, k_ms: float, p_ms: float,
+def add_site(results: dict, prefix: str, name: str, per_step: int, k_ms: float, p_ms: float,
              bound_ms: float, bound_by: str, lib_ms=None) -> None:
+    """Add one site's times, x its launches per step, to a kernel's per-step sums
+    of one config (``prefix`` "" for the flagship, "vox_" for VoxCeleb)."""
     r = results[name]
-    r["launches_per_step"] += per_step
-    r["ms"] += per_step * k_ms
-    r["plain_ms"] += per_step * p_ms
-    r["bound_ms"] += per_step * bound_ms
-    r["_bound_by"][bound_by] += per_step * bound_ms
+    r[f"{prefix}launches_per_step"] += per_step
+    r[f"{prefix}ms"] += per_step * k_ms
+    r[f"{prefix}plain_ms"] += per_step * p_ms
+    r[f"{prefix}bound_ms"] += per_step * bound_ms
+    r["_bound_by"][prefix][bound_by] += per_step * bound_ms
     if lib_ms is not None:
-        r["library_ms"] = (r["library_ms"] or 0.0) + per_step * lib_ms
+        r[f"{prefix}library_ms"] = (r[f"{prefix}library_ms"] or 0.0) + per_step * lib_ms
 
 
-def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> None:
+def per_step_text(site, *tables) -> str:
+    return ", ".join(f"x{t[site]} per {name} step" for name, t in zip(("flagship", "vox"), tables)
+                     if site in t)
+
+
+def union(*tables) -> list:
+    """The sites of several per-step tables, each once, in order of first appearance."""
+    return list(dict.fromkeys(site for t in tables for site in t))
+
+
+def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> dict:
+    """Check both AdaIN kernels at every flagship and VoxCeleb site; time the bf16 sites.
+
+    Returns {(B', C, H, W): {kernel: (ms, plain ms, bound ms, bound by, library ms)}}.
+    """
     import torch.nn.functional as F
 
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import adain as k1
 
-    sites = []
+    sites, times = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
-        for (b, c, h, w), per_step in ADAIN_SITES.items():
+        for b, c, h, w in union(ADAIN_SITES, VOX_ADAIN_SITES):
             def rand(*shape):
                 return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
@@ -242,7 +302,7 @@ def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> None
             g = rand(b, c, h, w).contiguous(memory_format=torch.channels_last)
             ms, ss = rand(b, c), rand(b, c)
             tag = f"adain {dtype_name(dtype)} [{b},{h},{w},{c}]"
-            print(f"  {tag} (x{per_step} per step)")
+            print(f"  {tag} ({per_step_text((b, c, h, w), ADAIN_SITES, VOX_ADAIN_SITES)})")
             fwd_err = compare("fwd", k1.ada_in_fwd_cuda(x, ms, ss), k1.ada_in_ref(x, ms, ss),
                               atol, rtol)
             got = k1.ada_in_bwd_cuda(x, ss, g)
@@ -262,12 +322,13 @@ def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> None
             xn = x.contiguous().view(1, b * c, h, w)
             timer.add(f"{tag} instance_norm", lambda xn=xn, ms=ms, ss=ss: F.instance_norm(
                 xn, weight=ss.reshape(-1), bias=ms.reshape(-1)))
-            sites.append((tag, (b, h, w, c), per_step))
+            sites.append((tag, (b, c, h, w)))
 
     print("  timing the bf16 sites (device time, L2 evicted before each call)", flush=True)
     t = timer.run()
-    for tag, (b, h, w, c), per_step in sites:
-        print(f"  {tag} (x{per_step} per step)")
+    for tag, (b, c, h, w) in sites:
+        print(f"  {tag} ({per_step_text((b, c, h, w), ADAIN_SITES, VOX_ADAIN_SITES)})")
+        times[(b, c, h, w)] = {}
         for d, name, n_bytes, flops in (
                 ("fwd", "adain_fwd", k1.ada_in_fwd_bytes(b, h, w, c, torch.bfloat16),
                  k1.ada_in_fwd_flops(b, h, w, c)),
@@ -277,29 +338,35 @@ def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> None
             b_ms, b_by = bound(n_bytes, flops, "f32")
             plan = k1.tile_config(b, h * w, c, k1.PER_THREAD[d])
             site_line(d, k_ms, p_ms, b_ms, b_by, note=f"; tile {tile_text(plan)}")
-            add_site(results, name, per_step, k_ms, p_ms, b_ms, b_by)
+            times[(b, c, h, w)][name] = (k_ms, p_ms, b_ms, b_by, None)
         in_ms, in_ops = t[f"{tag} instance_norm"]
         print(f"    nearest library op, not the same function (biased variance, eps inside "
               f"the sqrt): F.instance_norm over [1, B'C, H, W] NCHW {in_ms:.4f} ms, kernels "
               f"{sorted(name[:90] for name in in_ops)}")
+    return times
 
 
-def check_attention(gen: torch.Generator, results: dict, timer: DeviceTimer) -> None:
+def check_attention(gen: torch.Generator, results: dict, timer: DeviceTimer) -> dict:
+    """Check the attention core at every flagship and VoxCeleb site; time the bf16 sites.
+
+    Returns {(B', N, C, CQ): {"attention_core_fwd": (ms, plain ms, bound ms, bound by,
+    library ms)}}.
+    """
     import torch.nn.functional as F
 
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import attention as k2
 
-    sites = []
+    sites, times = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
-        for (b, n, c, cq), per_step in ATTENTION_SITES.items():
+        for b, n, c, cq in union(ATTENTION_SITES, VOX_ATTENTION_SITES):
             def rand(*shape, scale=1.0):
                 return (scale * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
 
             f, g, h = rand(b, n, cq, scale=0.5), rand(b, n, cq, scale=0.5), rand(b, n, c)
             dout = rand(b, n, c)
             tag = f"attention {dtype_name(dtype)} B'={b} N={n} C={c} CQ={cq}"
-            print(f"  {tag} (x{per_step} per step)")
+            print(f"  {tag} ({per_step_text((b, n, c, cq), ATTENTION_SITES, VOX_ATTENTION_SITES)})")
             fwd_err = compare("fwd", k2.attention_core_cuda(f, g, h),
                               k2.attention_core_ref(f, g, h), atol, rtol)
             leaves = [t.clone().requires_grad_(True) for t in (f, g, h)]
@@ -308,6 +375,7 @@ def check_attention(gen: torch.Generator, results: dict, timer: DeviceTimer) -> 
             k2.attention_core_ref(*leaves_ref).backward(dout)
             for name, a, r_ in zip(("df", "dg", "dh"), leaves, leaves_ref):
                 compare(f"bwd {name}", a.grad, r_.grad, atol, rtol)
+            del leaves, leaves_ref
             r = results["attention_core_fwd"]
             r["max_abs_err"] = max(r["max_abs_err"], fwd_err)
             if dtype != torch.bfloat16:
@@ -317,12 +385,12 @@ def check_attention(gen: torch.Generator, results: dict, timer: DeviceTimer) -> 
             # yardstick only: standard attention with Q = g, K = f, V = h at scale 1
             timer.add(f"{tag} library", lambda f=f, g=g, h=h: F.scaled_dot_product_attention(
                 g, f, h, scale=1.0))
-            sites.append((tag, (b, n, c, cq), per_step))
+            sites.append((tag, (b, n, c, cq)))
 
     print("  timing the bf16 sites (device time, L2 evicted before each call)", flush=True)
     t = timer.run()
-    for tag, (b, n, c, cq), per_step in sites:
-        print(f"  {tag} (x{per_step} per step)")
+    for tag, (b, n, c, cq) in sites:
+        print(f"  {tag} ({per_step_text((b, n, c, cq), ATTENTION_SITES, VOX_ATTENTION_SITES)})")
         k_ms, p_ms = t[f"{tag} kernel"][0], t[f"{tag} plain"][0]
         lib_ms, lib_ops = t[f"{tag} library"]
         b_ms, b_by = bound(k2.attention_core_bytes(b, n, c, cq, torch.bfloat16),
@@ -330,7 +398,16 @@ def check_attention(gen: torch.Generator, results: dict, timer: DeviceTimer) -> 
         site_line("fwd", k_ms, p_ms, b_ms, b_by,
                   f", library {lib_ms:.4f} ms (SDPA, {sdpa_backend(lib_ops)} backend)")
         print(f"      SDPA kernels: {sorted(name[:90] for name in lib_ops)}")
-        add_site(results, "attention_core_fwd", per_step, k_ms, p_ms, b_ms, b_by, lib_ms)
+        times[(b, n, c, cq)] = {"attention_core_fwd": (k_ms, p_ms, b_ms, b_by, lib_ms)}
+    return times
+
+
+def add_config(results: dict, prefix: str, tables, times: dict) -> None:
+    """Sum the timed sites of one config's per-step tables into ``results``."""
+    for table in tables:
+        for site, per_step in table.items():
+            for name, (k_ms, p_ms, b_ms, b_by, lib_ms) in times[site].items():
+                add_site(results, prefix, name, per_step, k_ms, p_ms, b_ms, b_by, lib_ms)
 
 
 def report_cuda_build(so) -> None:
@@ -484,22 +561,308 @@ def run_train(seed: int, n_steps: int, counters) -> dict:
     return launches
 
 
+PER_CONFIG = ("", "vox_")  # key prefixes of the kernels' JSON: the flagship step, the VoxCeleb step
+
+
+def kernel_results() -> dict:
+    """Each kernel's JSON entry, its per-step sums at zero."""
+    return {
+        name: {"name": name, "route": route, "source": src, "replaces": rep,
+               "launches": 0, "vox_launches": 0, "max_abs_err": 0.0,
+               **{f"{p}{k}": v for p in PER_CONFIG
+                  for k, v in (("launches_per_step", 0), ("ms", 0.0), ("plain_ms", 0.0),
+                               ("library_ms", None), ("bound_ms", 0.0), ("bound_by", None),
+                               ("share_of_bound", None))},
+               "_bound_by": {p: {"bytes": 0.0, "operations": 0.0} for p in PER_CONFIG}}
+        for name, route, src, rep in (
+            ("adain_fwd", "triton", "optimalstrategiesagainstgenerativeattacks_torch/kernels/adain.py",
+             "optimalstrategiesagainstgenerativeattacks_tpu/ops/pallas/adain_pallas.py:72"),
+            ("adain_bwd", "triton", "optimalstrategiesagainstgenerativeattacks_torch/kernels/adain.py",
+             "optimalstrategiesagainstgenerativeattacks_tpu/ops/pallas/adain_pallas.py:92"),
+            ("attention_core_fwd", "cuda",
+             "optimalstrategiesagainstgenerativeattacks_torch/kernels/csrc/attention.cu",
+             "optimalstrategiesagainstgenerativeattacks_tpu/ops/pallas/attention_pallas.py:52"),
+        )
+    }
+
+
+def summarise(results: dict, times: dict) -> None:
+    """Sum the timed sites into per-step times of each config; print them."""
+    add_config(results, "", (ADAIN_SITES, ATTENTION_SITES), times)
+    add_config(results, "vox_", (VOX_ADAIN_SITES, VOX_ATTENTION_SITES), times)
+    for r in results.values():
+        by = r.pop("_bound_by")
+        for p in PER_CONFIG:
+            r[f"{p}bound_by"] = max(by[p], key=by[p].get)
+            r[f"{p}share_of_bound"] = r[f"{p}bound_ms"] / r[f"{p}ms"]
+    for p, label in (("", "flagship"), ("vox_", "VoxCeleb")):
+        print(f"  per {label} step: " + "; ".join(
+            f"{r['name']} x{r[p + 'launches_per_step']} {r[p + 'ms']:.4f} ms (plain "
+            f"{r[p + 'plain_ms']:.4f}, library "
+            f"{'none' if r[p + 'library_ms'] is None else format(r[p + 'library_ms'], '.4f')}"
+            f", bound {r[p + 'bound_ms']:.4f}, share {r[p + 'share_of_bound']:.3f})"
+            for r in results.values()))
+
+
+def check_r1(seed: int) -> None:
+    """R1 penalty and authenticator gradients at the VoxCeleb widths, f32, card vs CPU."""
+    from optimalstrategiesagainstgenerativeattacks_torch.models import image as imodels
+    from optimalstrategiesagainstgenerativeattacks_torch.nn.init import init_module
+    from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
+    from optimalstrategiesagainstgenerativeattacks_torch.train.losses import bce_with_logits
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ImageGameConfig(img_size=64, img_channels=3, reg_param=10.0, compute_dtype="float32",
+                          batch_size=2)
+    gen = torch.Generator().manual_seed(seed + 2)
+    au = imodels.get_au(cfg.img_size, cfg.img_channels, cfg.style_dim)
+    init_module(au, gen)
+    randomise_norms_and_gammas(au, gen)
+    b, s, c = cfg.batch_size, cfg.img_size, cfg.img_channels
+    # independent images: the sets' features stay apart, so the set std's
+    # gradient does not magnify rounding
+    real, fake = (torch.rand(b, cfg.n, s, s, c, generator=gen) * 2 - 1 for _ in range(2))
+    si = torch.rand(b, cfg.k, s, s, c, generator=gen) * 2 - 1
+    names = [k for k, _ in au.named_parameters()]
+
+    def run(au_, device):
+        real_ = real.to(device).requires_grad_(True)
+        si_ = si.to(device).requires_grad_(True)
+        out_real, out_fake = timg.au_outputs(au_, real_, fake.to(device), si_)
+        reg = timg.r1_penalty(cfg, out_real, real_, si_)
+        loss = (bce_with_logits(out_real, 1.0) + bce_with_logits(out_fake, 0.0) + reg).mean()
+        grads = torch.autograd.grad(loss, list(au_.parameters()))
+        return reg.detach().cpu(), {k: g.cpu() for k, g in zip(names, grads)}
+
+    t0 = time.perf_counter()
+    reg_cpu, grads_cpu = run(au, "cpu")
+    t1 = time.perf_counter()
+    reg_gpu, grads_gpu = run(copy.deepcopy(au).cuda(), "cuda")
+    torch.cuda.synchronize()
+    print(f"  R1 penalty per episode: card {reg_gpu.tolist()}, CPU {reg_cpu.tolist()} "
+          f"(CPU {t1 - t0:.2f} s, card {time.perf_counter() - t1:.2f} s)")
+    compare("R1 penalty (card vs CPU)", reg_gpu, reg_cpu, 0.0, R1_TOL)
+    player = max(g.abs().max().item() for g in grads_cpu.values())
+    ratios = []
+    for k in names:
+        got, want = grads_gpu[k], grads_cpu[k]
+        if not torch.isfinite(got).all():
+            fail(f"R1: non-finite gradient of {k} on the card")
+        limit = R1_TOL * want.abs().max().item() + R1_TOL * 1e-3 * player
+        ratios.append(((got - want).abs().max().item() / limit, k))
+    ratios.sort(reverse=True)
+    print(f"  authenticator gradients (card vs CPU), {len(ratios)} tensors; error / limit of "
+          f"the worst: " + ", ".join(f"{k} {r:.3f}" for r, k in ratios[:3]))
+    if ratios[0][0] > 1.0:
+        fail(f"R1: gradient of {ratios[0][1]} off by {ratios[0][0]:.3f} x its limit")
+
+
+class SeededEpisodes:
+    """An in-memory episodic dataset of uint8 noise images drawn from a seed:
+    ``n_classes`` classes of ``per_class`` images, one episode per class.
+    It offers the interface ``EpisodicBatchLoader`` reads (``__len__``,
+    ``sample_episode``, ``__getitem__``) without files or PIL."""
+
+    def __init__(self, cfg, n_classes: int, per_class: int, seed: int):
+        rng = np.random.default_rng(seed)
+        self.m, self.n, self.k = cfg.m, cfg.n, cfg.k
+        self.images = rng.integers(
+            0, 256, (n_classes, per_class, cfg.img_size, cfg.img_size, cfg.img_channels),
+            dtype=np.uint8)
+
+    def __len__(self) -> int:
+        return self.images.shape[0]
+
+    def sample_episode(self, index: int, rng: np.random.Generator) -> dict:
+        pick = rng.choice(self.images.shape[1], size=self.m + self.n + self.k, replace=False)
+        imgs = self.images[index, pick]
+        return {"leaked_sample": imgs[: self.m], "real_sample": imgs[self.m: self.m + self.n],
+                "si_sample": imgs[self.m + self.n:], "class": np.int32(index)}
+
+    def __getitem__(self, index: int) -> dict:
+        return self.sample_episode(index, np.random.default_rng(index))
+
+
+class MemoryLogger:
+    """The loop's logger with its scalars kept in memory and its image grids
+    checked and counted, not written (no PIL, no files)."""
+
+    def __init__(self):
+        self.stats, self.grids = {}, 0
+
+    def add_scalar(self, category: str, k: str, v: float, global_step: int) -> None:
+        self.stats.setdefault(category, {}).setdefault(k, []).append((int(global_step), float(v)))
+
+    def add_imgs(self, imgs, category: str, k: str, global_step: int, nrow: int = 5) -> None:
+        if not (np.isfinite(imgs).all() and imgs.min() >= 0.0 and imgs.max() <= 1.0):
+            fail(f"image grid {category}/{k}: values outside [0, 1]")
+        self.grids += 1
+
+
+def eval_indices(n: int) -> int:
+    """How many episodes the loop's image dump samples from a dataset of n."""
+    return len(range(0, n, max(1, n // 10)))
+
+
+def expected_launches(calls: dict) -> dict:
+    """{kernel: launches} of ``calls`` {entry point: count} at the VoxCeleb config."""
+    return {name: sum(n * VOX_LAUNCHES[fn][name] for fn, n in calls.items())
+            for name in VOX_LAUNCHES["train_step"]}
+
+
+def check_launches(what: str, counters, calls: dict) -> dict:
+    got = {c.name: c.count for c in counters}
+    copies = got.pop("adain_nhwc_copy")
+    want = expected_launches(calls)
+    print(f"  {what}: launches {got}, expected {want}; layout copies in front of the AdaIN "
+          f"kernels {copies}")
+    if got != want:
+        fail(f"{what}: launches {got}, expected {want}")
+    if copies:
+        fail(f"{what}: {copies} layout copies in front of the AdaIN kernels")
+    return got
+
+
+def run_vox(seed: int, n_steady: int, counters) -> dict:
+    """The VoxCeleb config through the loop, sample, eval, steady steps and a resume."""
+    import dataclasses
+
+    from optimalstrategiesagainstgenerativeattacks_torch.data.episodic import EpisodicBatchLoader
+    from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
+    from optimalstrategiesagainstgenerativeattacks_torch.train.checkpoints import get_latest_ckpt
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+
+    outdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_vox")
+    shutil.rmtree(outdir, ignore_errors=True)
+    # the VoxCeleb2 paper hparams (train_gim_on_imgs.py:6-8); epochs of one
+    # step, so that the checkpoint of step 2 resumes for one step
+    cfg = ImageGameConfig(img_size=64, img_channels=3, au_lr=1e-4, im_lr=1e-4,
+                          env_noise_mapping_lr=1e-6, reg_param=10.0, seed=seed, outdir=outdir,
+                          n_epochs=4, save_every=2, log_every=1, log_enc_every=1000,
+                          eval_every=1000, save_imgs_every=1000)
+    print(f"  config: B={cfg.batch_size} img={cfg.img_size}x{cfg.img_size}x{cfg.img_channels} "
+          f"style={cfg.style_dim} m={cfg.m} n={cfg.n} k={cfg.k} reg_param={cfg.reg_param} "
+          f"lr au/im/noise {cfg.au_lr}/{cfg.im_lr}/{cfg.env_noise_mapping_lr} {cfg.compute_dtype}")
+    per_class = cfg.m + cfg.n + cfg.k + 1
+    train_ds = SeededEpisodes(cfg, cfg.batch_size, per_class, seed)
+    val_ds = SeededEpisodes(cfg, cfg.batch_size, per_class, seed + 1)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    logger = MemoryLogger()
+    t0 = time.perf_counter()
+    state = timg.train_gim_imgs(cfg, train_ds, val_ds, logger=logger, progress=False,
+                                device="cuda")
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = check_launches(
+        f"loop ({cfg.n_epochs} steps; at step 0 diagnostics, images and eval)", counters,
+        {"train_step": cfg.n_epochs, "diag": 1, "eval_step": len(val_ds) // cfg.batch_size,
+         "sample": eval_indices(len(train_ds)) + eval_indices(len(val_ds))})
+    if state.step != cfg.n_epochs - 1:
+        fail(f"loop: state.step {state.step} after {cfg.n_epochs} steps")
+    ckpt_dir = os.path.join(outdir, cfg.ckpt_dir_name)
+    ckpts = sorted(os.listdir(ckpt_dir))
+    if ckpts != ["model_00000000", "model_00000002", "model_00000003"]:
+        fail(f"loop: checkpoints {ckpts}")
+    losses = logger.stats["train_losses"]
+    for gs, v in losses["dis_loss"]:
+        print(f"  step {gs}: dis_loss={v:.4f} dis_reg={dict(losses['dis_reg'])[gs]:.4f} "
+              f"gen_loss={dict(losses['gen_loss'])[gs]:.4f}")
+    bad = [(cat, k) for cat, d in logger.stats.items() for k, pts in d.items()
+           if not all(math.isfinite(v) for _, v in pts)]
+    if bad:
+        fail(f"loop: non-finite metrics {bad}")
+    print(f"  loop: {loop_s:.2f} s in all (state build, compiles, cuDNN heuristics, step-0 "
+          f"extras, {len(ckpts)} checkpoints); {logger.grids} image grids; checkpoints {ckpts}")
+
+    loader = EpisodicBatchLoader(train_ds, cfg.batch_size, seed=seed)
+    batches = []
+    for epoch in (cfg.n_epochs, cfg.n_epochs + 1):  # batches the loop has not seen
+        loader.set_epoch(epoch)
+        batches.append({k: torch.from_numpy(v).cuda() for k, v in next(iter(loader)).items()
+                        if k != "class"})
+    for c in counters:
+        c.reset()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    fake = timg.sample(state, batches[0]["leaked_sample"][:1], gen)
+    check_launches("sample (one episode)", counters, {"sample": 1})
+    if tuple(fake.shape) != (1, cfg.n, cfg.img_size, cfg.img_size, cfg.img_channels):
+        fail(f"sample: fake shape {tuple(fake.shape)}")
+    if not (torch.isfinite(fake).all() and fake.abs().max() <= 1.0):
+        fail("sample: fake non-finite or outside [-1, 1]")
+    for c in counters:
+        c.reset()
+    metrics = {k: float(v) for k, v in timg.eval_step(state, batches[0], gen).items()}
+    check_launches("eval_step", counters, {"eval_step": 1})
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"eval_step: non-finite metrics {metrics}")
+    print("  eval_step: " + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    state, steady = timg.train_gim_imgs_steps(cfg, itertools.cycle(batches), n_steady,
+                                              state=state)
+    step_s = (time.perf_counter() - t0) / n_steady
+    check_launches(f"{n_steady} steady steps", counters, {"train_step": n_steady})
+    if not all(math.isfinite(v) for m in steady for v in m.values()):
+        fail("steady steps: non-finite metrics")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    images = cfg.batch_size * (cfg.m + cfg.n + cfg.k)
+    print(f"  steady steps: {1.0 / step_s:.3f} steps/s, {images / step_s:.1f} images/s "
+          f"({images} batch images per step), {step_s * 1e3:.2f} ms/step, peak memory "
+          f"{peak:.2f} GiB (torch.cuda.max_memory_allocated, loop and steady steps)  "
+          f"[{smi_line()}]")
+    del state, steady
+
+    for c in counters:
+        c.reset()
+    resume_logger = MemoryLogger()
+    resumed = timg.train_gim_imgs(
+        dataclasses.replace(cfg, resume_from_ckpt=os.path.join(cfg.ckpt_dir_name, "model_00000002"),
+                            n_epochs=3),
+        train_ds, val_ds, logger=resume_logger, progress=False, device="cuda")
+    check_launches("resume from model_00000002 (one step)", counters, {"train_step": 1})
+    if resumed.step != 3 or not get_latest_ckpt(ckpt_dir).endswith("model_00000003"):
+        fail(f"resume: state.step {resumed.step}")
+    got = {k: dict(v)[3] for k, v in resume_logger.stats["train_losses"].items()}
+    if not all(math.isfinite(v) for v in got.values()):
+        fail(f"resume: non-finite metrics {got}")
+    # the checkpoint of step 2 was saved in epoch 2, which the resumed run
+    # takes again (the reference's epoch bookkeeping): its step 3 sees the
+    # batch of the loop's step 2
+    print("  resumed step 3 (epoch 2 again): " + ", ".join(
+        f"{k}={got[k]:.5f}" for k in sorted(got)))
+    del resumed
+    shutil.rmtree(outdir, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--vox_steps", type=int, default=3, help="timed steady VoxCeleb steps")
     args = ap.parse_args()
     if args.steps < 2:
         fail("--steps must be at least 2 (the first step is warm-up)")
+    if args.vox_steps < 1:
+        fail("--vox_steps must be at least 1")
 
-    print("[1/5] card", flush=True)
+    print("[1/7] card", flush=True)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     print(f"  {smi_line()}")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    print("[2/5] build", flush=True)
+    print("[2/7] build", flush=True)
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import adain as k1
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import attention as k2
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import build
@@ -518,46 +881,29 @@ def main() -> None:
     print(f"  triton adain kernels (first f32 compile): {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    results = {
-        name: {"name": name, "route": route, "source": src, "replaces": rep,
-               "launches": 0, "launches_per_step": 0, "max_abs_err": 0.0, "ms": 0.0,
-               "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0, "bound_by": None,
-               "share_of_bound": None, "_bound_by": {"bytes": 0.0, "operations": 0.0}}
-        for name, route, src, rep in (
-            ("adain_fwd", "triton", "optimalstrategiesagainstgenerativeattacks_torch/kernels/adain.py",
-             "optimalstrategiesagainstgenerativeattacks_tpu/ops/pallas/adain_pallas.py:72"),
-            ("adain_bwd", "triton", "optimalstrategiesagainstgenerativeattacks_torch/kernels/adain.py",
-             "optimalstrategiesagainstgenerativeattacks_tpu/ops/pallas/adain_pallas.py:92"),
-            ("attention_core_fwd", "cuda",
-             "optimalstrategiesagainstgenerativeattacks_torch/kernels/csrc/attention.cu",
-             "optimalstrategiesagainstgenerativeattacks_tpu/ops/pallas/attention_pallas.py:52"),
-        )
-    }
+    results = kernel_results()
 
-    print("[3/5] kernels vs plain versions at the flagship sites "
+    print("[3/7] kernels vs plain versions at the flagship and VoxCeleb sites "
           f"(f32 atol/rtol {TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}; "
           "pass: max|err| <= atol + rtol*max|ref|)", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = DeviceTimer()
-    check_adain(gen, results, timer)
-    check_attention(gen, results, timer)
+    times = {**check_adain(gen, results, timer), **check_attention(gen, results, timer)}
     del timer
     torch.cuda.synchronize()
-    for r in results.values():
-        by = r.pop("_bound_by")
-        r["bound_by"] = max(by, key=by.get)
-        r["share_of_bound"] = r["bound_ms"] / r["ms"]
-    print("  per flagship step: " + "; ".join(
-        f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-        f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}, bound "
-        f"{r['bound_ms']:.4f}, share {r['share_of_bound']:.3f})" for r in results.values()))
+    summarise(results, times)
 
-    print(f"[4/5] slice parity: flagship widths, f32, TF32 off, B=2, fixed z "
+    print(f"[4/7] slice parity: flagship widths, f32, TF32 off, B=2, fixed z "
           f"(tol {SLICE_TOL} x max(1, max|ref|))", flush=True)
     check_slice(args.seed)
 
-    print(f"[5/5] train: {args.steps} flagship steps", flush=True)
+    print(f"[5/7] R1 parity: VoxCeleb widths (64x64x3, style 512), f32, TF32 off, B=2 "
+          f"(penalty tol {R1_TOL} x max|ref|; each gradient {R1_TOL} x its max|ref| + "
+          f"{R1_TOL * 1e-3:g} x the player's)", flush=True)
+    check_r1(args.seed)
+
     counters = (k1.FWD_LAUNCHES, k1.BWD_LAUNCHES, k2.FWD_LAUNCHES, k1.NHWC_COPIES)
+    print(f"[6/7] train: {args.steps} flagship steps", flush=True)
     launches = run_train(args.seed, args.steps, counters)
     print(f"  layout copies in front of the AdaIN kernels: {launches.pop('adain_nhwc_copy')}")
     expected = {
@@ -570,6 +916,11 @@ def main() -> None:
         if launches[name] != want:
             fail(f"{name}: {launches[name]} launches, expected {want}")
         results[name]["launches"] = launches[name]
+
+    print(f"[7/7] vox: the VoxCeleb config through train_gim_imgs, then sample, eval_step, "
+          f"{args.vox_steps} steady steps and a resume", flush=True)
+    for name, n in run_vox(args.seed, args.vox_steps, counters).items():
+        results[name]["vox_launches"] = n
 
     print(smi_line())
     print(json.dumps({"kernels": list(results.values())}))

@@ -113,13 +113,19 @@ def attention_core_ref(f, g, h):
 def attention_core_bwd(f, g, h, dout):
     """Backward of the core in torch ops (recomputes P; not a kernel).
 
-    P = softmax_i(f g^T);  dh = P dout;  dP[i, j] = h_i . dout_j;
+    P = softmax_i(f g^T);  dh = P~ dout;  dP[i, j] = h_i . dout_j, rounded;
     dS = P * (dP - sum_i P * dP);  df = dS g;  dg = dS^T f.
+
+    Two roundings to h's dtype follow the JAX reference's vjp: P~ is P
+    rounded, the P of the forward's second product, and dP is rounded, as
+    the cotangent of its ``attn.astype(h.dtype)``.  In f32 neither changes
+    anything.  Every op is differentiable, so a double backward (the R1
+    penalty's) runs through it.
     """
     ff, gf, hf, df_out = f.float(), g.float(), h.float(), dout.float()
     p = torch.softmax(torch.bmm(ff, gf.transpose(1, 2)), dim=1)
-    dh = torch.bmm(p, df_out)
-    dp = torch.bmm(hf, df_out.transpose(1, 2))
+    dh = torch.bmm(p.to(h.dtype).float(), df_out)
+    dp = torch.bmm(hf, df_out.transpose(1, 2)).to(h.dtype).float()
     ds = p * (dp - (p * dp).sum(dim=1, keepdim=True))
     df = torch.bmm(ds, gf)
     dg = torch.bmm(ds.transpose(1, 2), ff)

@@ -14,7 +14,16 @@ def mean_stat(x: torch.Tensor) -> torch.Tensor:
 
 
 def custom_std(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Safe sample std over axis 1: sqrt(unbiased var + eps); zeros when sample_size == 1."""
+    """Safe sample std over axis 1: sqrt(unbiased var + eps); zeros when sample_size == 1.
+
+    The variance is written out as the mean of centred squares, the ops
+    ``jnp.var`` is made of, rather than ``torch.var``: under the R1 double
+    backward, ``torch.var``'s derivative formula leaves a term that is 0 in
+    exact arithmetic (a shift of every set member alike leaves the std as it
+    is) as a sum of large f32 terms, and the R1 gradient of the env
+    encoder's last biases then misses the reference's at f32 tolerances.
+    """
     if x.shape[1] > 1:
-        return torch.sqrt(x.var(dim=1, unbiased=True) + eps)
+        centred = x - x.mean(dim=1, keepdim=True)
+        return torch.sqrt((centred * centred).sum(dim=1) / (x.shape[1] - 1) + eps)
     return torch.zeros((x.shape[0], *x.shape[2:]), dtype=x.dtype, device=x.device)

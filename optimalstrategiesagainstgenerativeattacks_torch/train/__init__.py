@@ -1,1 +1,1 @@
-"""Losses, game state and the image game's train step."""
+"""Losses, game state, the image game's train step and loop, checkpoints and logger."""

@@ -1,4 +1,4 @@
-"""Image GIM game: the alternating train step and a loop around it.
+"""Image GIM game: the alternating train step, eval, sampling and the loop.
 
 Counterpart of ``optimalstrategiesagainstgenerativeattacks_tpu/train/image.py``
 (``make_train_step_fn`` / ``make_split_train_step``, identical math):
@@ -12,25 +12,47 @@ Counterpart of ``optimalstrategiesagainstgenerativeattacks_tpu/train/image.py``
      the fake is generated without a gradient from the unchanged state.
   2. Authenticator phase: one power iteration of its spectral state, one
      pass of both encoders over [si; real; fake.detach()], two head calls,
-     BCE with real -> 1 and fake -> 0, one Adam step.
+     BCE with real -> 1 and fake -> 0, plus, when ``reg_param > 0``, the R1
+     penalty reg_param * (|d out_real / d real|^2 + |d out_real / d si|^2)
+     per episode; one Adam step.  R1 shares the loss's forward, as the
+     reference's ``jax.vjp`` does: its input gradient is taken with
+     ``create_graph=True`` on the same graph, and the parameter gradient of
+     the loss then runs a double backward through the encoders (the
+     attention core's backward included).
 
 Batches are uint8 ``[B, S, H, W, C]`` arrays normalised on the device as
 x / 127.5 - 1, then cast to the compute dtype.  The authenticator phase runs
 the whole batch at once: the reference's ``au_microbatch`` is a memory policy
-for a 16 GB TPU and is not carried.  ``reg_param > 0`` (the R1 penalty) is
-not ported yet.
+for a 16 GB TPU and is not carried.
+
+``train_gim_imgs`` is the reference's loop (its ``train_gim_imgs:357-447``,
+as the JAX package's ``train_gim_imgs`` ports it): epochs over an
+``EpisodicBatchLoader``, the same scalar tags and cadences, checkpoints,
+image grids, eval over the val set, and a save on KeyboardInterrupt or
+PermissionError.  Per-step metrics stay on the device in a [log_every, K]
+buffer that reaches the host in one transfer per flush.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
+import time
 from typing import Iterable, Optional
 
+import numpy as np
 import torch
 
+from optimalstrategiesagainstgenerativeattacks_torch.data.episodic import EpisodicBatchLoader
 from optimalstrategiesagainstgenerativeattacks_torch.models import image as imodels
 from optimalstrategiesagainstgenerativeattacks_torch.nn.init import init_module
 from optimalstrategiesagainstgenerativeattacks_torch.ops.spectral import power_iterate
+from optimalstrategiesagainstgenerativeattacks_torch.ops.stats import custom_std
+from optimalstrategiesagainstgenerativeattacks_torch.train.checkpoints import (
+    CheckpointIO,
+    resolve_ckpt_path,
+)
+from optimalstrategiesagainstgenerativeattacks_torch.train.logger import Logger
 from optimalstrategiesagainstgenerativeattacks_torch.train.losses import (
     bce_with_logits,
     gan_accuracy,
@@ -50,6 +72,13 @@ METRIC_KEYS = (
     "au_acc_on_real",
     "au_acc_on_fake",
     "im_trained",
+)
+EVAL_KEYS = tuple(k for k in METRIC_KEYS if k not in ("au_reg", "im_trained"))
+DIAG_KEYS = tuple(
+    f"au_{enc}_{what}"
+    for enc in ("src", "env")
+    for what in ("mean_abs_real_minus_si", "mean_abs_fake_minus_si",
+                 "std_real", "std_si", "std_fake")
 )
 
 
@@ -90,6 +119,12 @@ def make_optimizers(cfg: ImageGameConfig, au, im):
     return opt_au, opt_im, sched_au, sched_im
 
 
+def lr_at(cfg: ImageGameConfig, base_lr: float, step: int) -> float:
+    """The scheduled LR at optimizer step ``step`` (the reference's piecewise-constant
+    schedule: times lr_gamma for every milestone <= step)."""
+    return base_lr * cfg.lr_gamma ** sum(int(m) <= step for m in cfg.milestones)
+
+
 def create_state(cfg: ImageGameConfig, au, im, seed: int, device) -> GameState:
     """Initialise both players from ``seed`` (on the CPU), move them to ``device``,
     and build the optimizers and the noise generator."""
@@ -103,15 +138,16 @@ def create_state(cfg: ImageGameConfig, au, im, seed: int, device) -> GameState:
     return GameState(cfg, au, im, opt_au, opt_im, sched_au, sched_im, noise_gen)
 
 
+def prepare(cfg: ImageGameConfig, x, device) -> torch.Tensor:
+    """uint8 images -> [-1, 1] in the compute dtype on ``device``."""
+    x = torch.as_tensor(x, device=device)
+    return (x.float() / 127.5 - 1.0).to(compute_dtype(cfg) or torch.float32)
+
+
 def prepare_batch(cfg: ImageGameConfig, batch, device):
     """uint8 (real, leaked, si) -> [-1, 1] images in the compute dtype on ``device``."""
-    dt = compute_dtype(cfg) or torch.float32
-
-    def prep(x):
-        x = torch.as_tensor(x, device=device)
-        return (x.float() / 127.5 - 1.0).to(dt)
-
-    return tuple(prep(batch[k]) for k in ("real_sample", "leaked_sample", "si_sample"))
+    return tuple(prepare(cfg, batch[k], device)
+                 for k in ("real_sample", "leaked_sample", "si_sample"))
 
 
 def au_outputs(au, real, fake, si):
@@ -132,6 +168,25 @@ def au_outputs(au, real, fake, si):
             au.discriminate(fake_src, fake_env, si_src, si_env))
 
 
+def r1_penalty(cfg: ImageGameConfig, out_real, real, si):
+    """reg_param * per-episode squared norm of d sum(out_real) / d (real, si), in f32,
+    kept differentiable (``create_graph``) for the parameter gradient."""
+    g_real, g_si = torch.autograd.grad(out_real.sum(), (real, si), create_graph=True)
+    b = real.shape[0]
+    return cfg.reg_param * (g_real.float().square().reshape(b, -1).sum(1)
+                            + g_si.float().square().reshape(b, -1).sum(1))
+
+
+def _adam_step(module, opt, sched, loss) -> None:
+    """One Adam step of ``module`` on ``loss``; the gradient reaches its parameters only."""
+    params = list(module.parameters())
+    for p, g in zip(params, torch.autograd.grad(loss, params)):
+        p.grad = g
+    opt.step()
+    sched.step()
+    opt.zero_grad(set_to_none=True)
+
+
 def train_step(state: GameState, batch, z: Optional[torch.Tensor] = None):
     """One game step, updating ``state`` in place.
 
@@ -140,8 +195,6 @@ def train_step(state: GameState, batch, z: Optional[torch.Tensor] = None):
     with the metrics as 0-dim f32 tensors on the device (no host sync).
     """
     cfg = state.cfg
-    if cfg.reg_param > 0:
-        raise NotImplementedError("reg_param > 0 (R1 penalty) is not ported yet")
     au, im = state.au, state.im
     step = state.step + 1
     real, leaked, si = prepare_batch(cfg, batch, state.device)
@@ -154,12 +207,7 @@ def train_step(state: GameState, batch, z: Optional[torch.Tensor] = None):
     if (step + 1) % cfg.n_au_steps == 0:
         power_iterate(im)
         im_loss_value, fake = im_loss()
-        params = list(im.parameters())
-        for p, g in zip(params, torch.autograd.grad(im_loss_value, params)):
-            p.grad = g
-        state.opt_im.step()
-        state.sched_im.step()
-        state.opt_im.zero_grad(set_to_none=True)
+        _adam_step(im, state.opt_im, state.sched_im, im_loss_value)
         im_trained = 1.0
     else:
         with torch.no_grad():
@@ -169,15 +217,16 @@ def train_step(state: GameState, batch, z: Optional[torch.Tensor] = None):
 
     # ---- authenticator on the detached fake
     power_iterate(au)
+    r1 = cfg.reg_param > 0
+    if r1:
+        real.requires_grad_(True)
+        si.requires_grad_(True)
     out_real, out_fake = au_outputs(au, real, fake, si)
     loss_on_real = bce_with_logits(out_real, 1.0)
     loss_on_fake = bce_with_logits(out_fake, 0.0)
-    reg = torch.zeros_like(loss_on_real)
+    reg = r1_penalty(cfg, out_real, real, si) if r1 else torch.zeros_like(loss_on_real)
     au_loss = (loss_on_real + loss_on_fake + reg).mean()
-    state.opt_au.zero_grad(set_to_none=True)
-    au_loss.backward()
-    state.opt_au.step()
-    state.sched_au.step()
+    _adam_step(au, state.opt_au, state.sched_au, au_loss)
 
     state.step = step
     with torch.no_grad():
@@ -199,6 +248,64 @@ def train_step(state: GameState, batch, z: Optional[torch.Tensor] = None):
     return metrics, fake
 
 
+@torch.no_grad()
+def sample(state: GameState, leaked, generator: Optional[torch.Generator] = None):
+    """The impersonator's fake for uint8 leaked images [B, m, H, W, C] (no gradient,
+    no change to the state): [B, n, H, W, C] in the compute dtype."""
+    cfg = state.cfg
+    return state.im(prepare(cfg, leaked, state.device), cfg.n, cfg.remove_noise_mean,
+                    generator=generator)
+
+
+@torch.no_grad()
+def eval_step(state: GameState, batch, generator: Optional[torch.Generator] = None):
+    """Both players' losses and accuracies on a batch, without any update
+    (the reference's ``make_eval_step``): 0-dim f32 tensors on the device."""
+    cfg = state.cfg
+    real, leaked, si = prepare_batch(cfg, batch, state.device)
+    fake = state.im(leaked, cfg.n, cfg.remove_noise_mean, generator=generator)
+    im_loss = bce_with_logits(state.au(fake, si), 1.0).mean()
+    out_real, out_fake = au_outputs(state.au, real, fake, si)
+    loss_on_real = bce_with_logits(out_real, 1.0)
+    loss_on_fake = bce_with_logits(out_fake, 0.0)
+    acc, acc_on_real, acc_on_fake = gan_accuracy(out_real, out_fake)
+    return {
+        "im_loss": im_loss,
+        "au_loss": (loss_on_real + loss_on_fake).mean(),
+        "au_loss_on_real": loss_on_real.mean(),
+        "au_loss_on_fake": loss_on_fake.mean(),
+        "au_out_on_real": out_real.float().mean(),
+        "au_out_on_fake": out_fake.float().mean(),
+        "au_acc": acc,
+        "au_acc_on_real": acc_on_real,
+        "au_acc_on_fake": acc_on_fake,
+    }
+
+
+@torch.no_grad()
+def diag(state: GameState, batch, fake):
+    """Encoder-statistic diagnostics of the authenticator (the reference's
+    ``make_diag_fn``): how far the real and fake sets' mean features sit from
+    the registration set's, and each set's feature std, per encoder.  One
+    pass of both encoders over [real; si; fake]."""
+    cfg = state.cfg
+    real, _, si = prepare_batch(cfg, batch, state.device)
+    b, n, k = real.shape[0], real.shape[1], si.shape[1]
+    img = real.shape[2:]
+    feats = state.au.encode_flat(torch.cat([real.reshape(b * n, *img), si.reshape(b * k, *img),
+                                            fake.reshape(-1, *img).to(real.dtype)]))
+    out = {}
+    for enc, x in zip(("src", "env"), feats):
+        x_real, x_si, x_fake = (x[: b * n].reshape(b, n, -1), x[b * n: b * (n + k)].reshape(b, k, -1),
+                                x[b * (n + k):].reshape(b, -1, x.shape[-1]))
+        si_mean = x_si.mean(1)
+        out[f"au_{enc}_mean_abs_real_minus_si"] = (x_real.mean(1) - si_mean).abs().mean()
+        out[f"au_{enc}_mean_abs_fake_minus_si"] = (x_fake.mean(1) - si_mean).abs().mean()
+        for name, s in (("real", x_real), ("si", x_si), ("fake", x_fake)):
+            out[f"au_{enc}_std_{name}"] = custom_std(s).mean()
+    return out
+
+
 def train_gim_imgs_steps(cfg: ImageGameConfig, batches: Iterable, n_steps: int,
                          state: Optional[GameState] = None, device="cuda"):
     """Run ``n_steps`` train steps over ``batches``; builds the state from
@@ -215,3 +322,213 @@ def train_gim_imgs_steps(cfg: ImageGameConfig, batches: Iterable, n_steps: int,
         raise ValueError(f"batches ran out after {len(history)} of {n_steps} steps")
     history = [{k: float(v) for k, v in m.items()} for m in history]
     return state, history
+
+
+########################################################################################################################
+# Loop
+########################################################################################################################
+
+
+def _to_01(img_sample: np.ndarray) -> np.ndarray:
+    """[-1, 1] -> [0, 1] with clamp (the reference's ``save_imgs``)."""
+    return (np.clip(np.asarray(img_sample, np.float32), -1, 1) + 1.0) / 2.0
+
+
+def sample_and_save_imgs(logger, state: GameState, ds, ds_prefix: str, indices,
+                         generator: torch.Generator, dbg: bool = False) -> None:
+    """Leaked and impersonator (and, with ``dbg``, real and si) grids for chosen
+    episodes (the reference's ``gim_img_training.py:34-73``)."""
+    gs = state.step
+    for idx in indices:
+        data = ds[idx]
+        fake = sample(state, data["leaked_sample"][None], generator)
+        cat = f"{ds_prefix} imgs_{idx:04d}"
+        logger.add_imgs(_to_01(data["leaked_sample"] / 127.5 - 1.0), cat, "leaked", gs)
+        logger.add_imgs(_to_01(fake[0].float().cpu().numpy()), cat, "impersonator", gs)
+        if dbg:
+            logger.add_imgs(_to_01(data["real_sample"] / 127.5 - 1.0), cat, "real", gs)
+            logger.add_imgs(_to_01(data["si_sample"] / 127.5 - 1.0), cat, "si", gs)
+
+
+def run_eval(state: GameState, ds, logger, batch_size: int, generator: torch.Generator,
+             num_workers: int = 0) -> dict:
+    """Eval over the val set (the reference's ``gim_img_training.py:98-154``),
+    logging the means; the sums reach the host in one transfer."""
+    loader = EpisodicBatchLoader(ds, batch_size=batch_size, shuffle=False, drop_last=True,
+                                 num_workers=num_workers)
+    sums, count = None, 0
+    for batch in loader:
+        m = eval_step(state, batch, generator)
+        vec = torch.stack([m[k] for k in EVAL_KEYS])
+        sums = vec if sums is None else sums + vec
+        count += 1
+    if count == 0:
+        return {}
+    means = dict(zip(EVAL_KEYS, (sums / count).cpu().tolist()))
+    gs = state.step
+    logger.add_scalar("eval_losses", "dis_loss", means["au_loss"], gs)
+    logger.add_scalar("eval_losses", "dis_loss_on_real", means["au_loss_on_real"], gs)
+    logger.add_scalar("eval_losses", "dis_loss_on_fake", means["au_loss_on_fake"], gs)
+    logger.add_scalar("eval_au_out", "au_out_on_real", means["au_out_on_real"], gs)
+    logger.add_scalar("eval_au_out", "au_out_on_fake", means["au_out_on_fake"], gs)
+    logger.add_scalar("eval_accuracy", "dis_acc", means["au_acc"], gs)
+    logger.add_scalar("eval_accuracy", "dis_acc_on_real", means["au_acc_on_real"], gs)
+    logger.add_scalar("eval_accuracy", "dis_acc_on_fake", means["au_acc_on_fake"], gs)
+    logger.add_scalar("eval_losses", "gen_loss", means["im_loss"], gs)
+    return means
+
+
+def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress: bool = True,
+                   device="cuda") -> GameState:
+    """Full image-game training (the reference's ``train_gim_imgs:357-447``).
+
+    Epochs ``[last_epoch, n_epochs)`` of ``len(loader)`` steps (50 with
+    ``cfg.dbg``).  After the step that makes the state's step ``gs``:
+    scalars flush when gs % log_every == 0, encoder diagnostics when
+    gs % log_enc_every == 0, a checkpoint when gs % save_every == 0, image
+    grids when gs % save_imgs_every == 0 and an eval over ``val_ds`` when
+    gs % eval_every == 0 (so all at gs = 0).  A last checkpoint is written at
+    the end, on KeyboardInterrupt (then it returns) and on PermissionError
+    (then it goes on with the next epoch).  Sampling and eval draw their
+    noise from their own generator, so they leave the training run's
+    stream as it is.  Returns the state.
+    """
+    au, im = build_models(cfg)
+    logger = logger or Logger(
+        log_dir=os.path.join(cfg.outdir, "logs"),
+        img_dir=os.path.join(cfg.outdir, "imgs"),
+        tensorboard_dir=os.path.join(cfg.outdir, "tb"),
+    )
+    checkpoint_io = CheckpointIO(os.path.join(cfg.outdir, cfg.ckpt_dir_name))
+
+    state = create_state(cfg, au, im, cfg.seed, device)
+    print(f"Authenticator has {sum(p.numel() for p in au.parameters())} parameters")
+    print(f"impersonator has {sum(p.numel() for p in im.parameters())} parameters")
+    if cfg.pretrained:
+        checkpoint_io.load(resolve_ckpt_path(cfg.pretrained, cfg.outdir), state,
+                           players_only=True)
+    last_epoch = 0
+    if cfg.resume_from_ckpt:
+        gstep, last_epoch = checkpoint_io.load(
+            resolve_ckpt_path(cfg.resume_from_ckpt, cfg.outdir), state)
+        print(f"Resuming training from iteration {gstep}")
+
+    train_bs = min(cfg.batch_size, len(train_ds))
+    val_bs = min(cfg.batch_size, len(val_ds))
+    train_eval_indices = list(range(0, len(train_ds), max(1, len(train_ds) // 10)))
+    val_eval_indices = list(range(0, len(val_ds), max(1, len(val_ds) // 10)))
+    loader = EpisodicBatchLoader(train_ds, batch_size=train_bs, shuffle=True, drop_last=True,
+                                 num_workers=cfg.num_workers, seed=cfg.seed)
+    sample_gen = torch.Generator(device=device).manual_seed(cfg.seed + 17)
+
+    log_buf = torch.zeros((max(cfg.log_every, 1), len(METRIC_KEYS)), device=device)
+    buf_count = 0
+    perf = {"t_last": None, "steps": 0}
+
+    def log_throughput(gs: int):
+        now = time.perf_counter()
+        if perf["t_last"] is not None and perf["steps"] > 0:
+            sps = perf["steps"] / (now - perf["t_last"])
+            logger.add_scalar("perf", "train_steps_per_sec", sps, gs)
+            logger.add_scalar("perf", "train_images_per_sec",
+                              sps * cfg.batch_size * (cfg.m + cfg.n + cfg.k), gs)
+        perf["t_last"] = now
+        perf["steps"] = 0
+
+    def flush_log(gs: int):
+        nonlocal buf_count
+        if buf_count == 0:
+            return
+        arr = log_buf[:buf_count].cpu().numpy()  # one transfer
+        host = {k: arr[:, i] for i, k in enumerate(METRIC_KEYS)}
+        buf_count = 0
+        logger.add_scalar("lr", "au", lr_at(cfg, cfg.au_lr, gs), gs)
+        logger.add_scalar("lr", "im", lr_at(cfg, cfg.im_lr, gs), gs)
+        logger.add_scalar("lr", "im_lm", lr_at(cfg, cfg.env_noise_mapping_lr, gs), gs)
+
+        def mean(k):
+            return float(np.mean(host[k]))
+
+        logger.add_scalar("train_losses", "dis_loss", mean("au_loss"), gs)
+        logger.add_scalar("train_losses", "dis_loss_on_real", mean("au_loss_on_real"), gs)
+        logger.add_scalar("train_losses", "dis_loss_on_fake", mean("au_loss_on_fake"), gs)
+        logger.add_scalar("train_losses", "dis_reg", mean("au_reg"), gs)
+        logger.add_scalar("train_au_out", "au_out_on_real", mean("au_out_on_real"), gs)
+        logger.add_scalar("train_au_out", "au_out_on_fake", mean("au_out_on_fake"), gs)
+        logger.add_scalar("train_accuracy", "dis_acc", mean("au_acc"), gs)
+        logger.add_scalar("train_accuracy", "dis_acc_on_real", mean("au_acc_on_real"), gs)
+        logger.add_scalar("train_accuracy", "dis_acc_on_fake", mean("au_acc_on_fake"), gs)
+        # the gen loss only over steps where the impersonator trained
+        trained = host["im_trained"] > 0
+        if trained.any():
+            logger.add_scalar("train_losses", "gen_loss", float(host["im_loss"][trained].mean()), gs)
+
+    def log_diag(batch, fake, gs: int):
+        d = diag(state, batch, fake)
+        vals = dict(zip(DIAG_KEYS, torch.stack([d[k] for k in DIAG_KEYS]).cpu().tolist()))
+        for enc in ("src", "env"):
+            logger.add_scalar(f"train-au_{enc}_mean", "abs[real-si]",
+                              vals[f"au_{enc}_mean_abs_real_minus_si"], gs)
+            logger.add_scalar(f"train-au_{enc}_mean", "abs[fake-si]",
+                              vals[f"au_{enc}_mean_abs_fake_minus_si"], gs)
+        for enc in ("src", "env"):
+            for name in ("real", "si", "fake"):
+                logger.add_scalar(f"train-au_{enc}_std", name, vals[f"au_{enc}_std_{name}"], gs)
+
+    def run_epoch(ep):
+        nonlocal buf_count
+        loader.set_epoch(ep)
+        num_iters = 50 if cfg.dbg else len(loader)
+        for batch in itertools.islice(loader, num_iters):
+            metrics, fake = train_step(state, batch)
+            # rows [0:buf_count] are the steps since the last flush; a buffer
+            # full before its cadence (a resume off the cadence) flushes now
+            if buf_count >= cfg.log_every:
+                flush_log(state.step)
+            log_buf[buf_count] = torch.stack([metrics[k].float() for k in METRIC_KEYS])
+            buf_count += 1
+            perf["steps"] += 1
+            gs = state.step
+            if gs % cfg.log_every == 0:
+                flush_log(gs)
+                log_throughput(gs)
+            if gs % cfg.log_enc_every == 0:
+                log_diag(batch, fake, gs)
+            if gs % cfg.save_every == 0:
+                checkpoint_io.save(state, gs, last_epoch=ep)
+            if gs % cfg.save_imgs_every == 0:
+                sample_and_save_imgs(logger, state, train_ds, "train", train_eval_indices,
+                                     sample_gen, cfg.dbg)
+                sample_and_save_imgs(logger, state, val_ds, "val", val_eval_indices,
+                                     sample_gen, cfg.dbg)
+            if gs % cfg.eval_every == 0:
+                run_eval(state, val_ds, logger, val_bs, sample_gen)
+
+    epoch_iter = range(last_epoch, cfg.n_epochs)
+    if progress:
+        try:
+            from tqdm import tqdm
+
+            epoch_iter = tqdm(epoch_iter, desc="Epochs")
+        except ImportError:
+            pass
+
+    # every save records the epoch in progress, so a resume replays the
+    # data schedule from that epoch (the reference's train_gim_imgs:432-447)
+    cur_epoch = last_epoch
+    try:
+        for ep in epoch_iter:
+            cur_epoch = ep
+            try:
+                run_epoch(ep)
+            except PermissionError as pe:
+                print(f"\nPermissionError\n{pe}\nSaving checkpoint...\n")
+                checkpoint_io.save(state, state.step, last_epoch=ep)
+                continue
+        cur_epoch = cfg.n_epochs
+    except KeyboardInterrupt:
+        print("\nKeyboardInterrupt\nSaving checkpoint...\n")
+        checkpoint_io.save(state, state.step, last_epoch=cur_epoch)
+        return state
+    checkpoint_io.save(state, state.step, last_epoch=cur_epoch)
+    return state

@@ -1,1 +1,1 @@
-"""The port's configuration (``ImageGameConfig``)."""
+"""The port's configuration (``ImageGameConfig``) and its ``args.json`` round-trip."""

@@ -1,27 +1,65 @@
-"""The image game's hyperparameters, as the port reads them.
+"""The image game's hyperparameters, as the port reads them, and ``args.json``.
 
 The fields and their defaults are those of the reference's
 ``optimalstrategiesagainstgenerativeattacks_tpu/utils/config.py``
 ``ImageGameConfig`` (the Omniglot paper hparams), restricted to what the
-port's models and train step read; a test holds every default equal to the
-reference's.  The port keeps its own copy so that it, and a GPU host
+port's models, train step and loop read; a test holds every default equal to
+the reference's.  The port keeps its own copy so that it, and a GPU host
 running it, needs nothing of the reference package.  ``from_dict`` ignores
 keys it does not know, so an ``args.json`` written by the reference (with
 its TPU-only keys) loads.
+
+``save_args`` / ``load_args`` snapshot a run's arguments to
+``<outdir>/args.json`` as flat JSON with the reference's key names, and map
+the old ``target_img_size`` key onto ``img_size`` on load.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
+
+
+def save_args(args, outdir: str) -> str:
+    """Snapshot a config (a dataclass or an argparse namespace) to args.json."""
+    os.makedirs(outdir, exist_ok=True)
+    json_path = os.path.join(outdir, "args.json")
+    payload = dataclasses.asdict(args) if dataclasses.is_dataclass(args) else vars(args)
+    with open(json_path, "w") as f:
+        json.dump(payload, f, indent=2, sort_keys=True)
+    return json_path
+
+
+def load_args(outdir: str) -> dict:
+    """Load the args.json snapshot; applies the target_img_size back-compat shim."""
+    with open(os.path.join(outdir, "args.json")) as f:
+        args_dict = json.load(f)
+    if "img_size" not in args_dict and "target_img_size" in args_dict:
+        args_dict["img_size"] = args_dict["target_img_size"]
+    return args_dict
 
 
 @dataclass
 class ImageGameConfig:
-    """Hyperparameters of the image GIM game (defaults: Omniglot, 32x32x1, style 512)."""
+    """Hyperparameters of the image GIM game (defaults: Omniglot, 32x32x1, style 512).
 
+    The VoxCeleb2 paper hparams: ``img_size=64, img_channels=3, au_lr=1e-4,
+    im_lr=1e-4, env_noise_mapping_lr=1e-6, reg_param=10``.
+    """
+
+    outdir: str = "./gim_imgs_outdir/"
+    dataset_root: str = ""
+    dataset_type: str = "omniglot"  # omniglot | voxceleb2
+    ckpt_dir_name: str = "ckpts"
+    resume_from_ckpt: Optional[str] = None
+    pretrained: Optional[str] = None
+    n_epochs: int = 100_000
     batch_size: int = 128
+    num_workers: int = 4
+    ds_n_examples_per_cls: int = 100
     m: int = 1
     n: int = 5
     k: int = 5
@@ -39,11 +77,19 @@ class ImageGameConfig:
     reg_param: float = 0.0
     remove_noise_mean: bool = True
     use_img_att: bool = False
+    save_every: int = 10_000
+    eval_every: int = 500
+    save_imgs_every: int = 500
     n_au_steps: int = 1
+    dbg: bool = False
     seed: int = 1
+    log_every: int = 100  # scalar flush cadence (the reference's tb_log_every)
+    log_enc_every: int = 500  # encoder-diagnostic cadence (tb_log_enc_every)
     compute_dtype: str = "bfloat16"
 
     @classmethod
     def from_dict(cls, d: dict) -> "ImageGameConfig":
+        if "img_size" not in d and "target_img_size" in d:
+            d = dict(d, img_size=d["target_img_size"])
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})

@@ -1,0 +1,161 @@
+"""Where a train step's time goes on the GPU: a torch.profiler trace of a few steps.
+
+    python scripts/torch_profile_step.py [--config flagship|vox] [--warm N] [--steps N]
+                                         [--trace PATH.json.gz]
+
+Builds the port's game state from a seed at the flagship config (B=128,
+32x32x1, style 512, bf16) or the VoxCeleb config (64x64x3, R1 with
+reg_param 10), takes ``--warm`` steps, then traces ``--steps`` calls of
+``train_step`` on two device-resident uint8 batches and prints, per step:
+  * host ms (wall clock up to the final synchronize) and the ms the host
+    took to enqueue the steps (before that synchronize);
+  * device busy ms (the union of the kernels', memsets' and copies'
+    intervals) and the device's idle share of the wall clock;
+  * device launches;
+  * device ms by category of kernel name, largest first, the largest
+    kernels by name, and the ops (with four levels of their callers) that
+    launched the most device time.
+The profiler adds host time, so host ms here exceed chip_smoke.py's.  With
+``--trace`` the Chrome trace is written there.  Needs one NVIDIA GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg  # noqa: E402
+from optimalstrategiesagainstgenerativeattacks_torch.utils.config import (  # noqa: E402
+    ImageGameConfig,
+)
+
+CONFIGS = {
+    "flagship": {},
+    # the VoxCeleb2 paper hparams (train_gim_on_imgs.py:6-8)
+    "vox": dict(img_size=64, img_channels=3, au_lr=1e-4, im_lr=1e-4,
+                env_noise_mapping_lr=1e-6, reg_param=10.0),
+}
+# (category, substrings of a kernel name), first match wins
+CATEGORIES = (
+    ("K2 attention core (port)", ("attention_core",)),
+    ("K1/K1b AdaIN (port)", ("adain_",)),
+    ("avg_pool2d forward + backward", ("avg_pool",)),
+    ("cuDNN layout transforms", ("nchwToNhwc", "nhwcToNchw", "nchwtonhwc", "nhwctonchw")),
+    ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "cudnn")),
+    ("GEMMs", ("gemm", "gemv")),
+    ("softmax", ("softmax",)),
+    ("nearest upsample", ("upsample",)),
+    ("Adam (foreach)", ("multi_tensor_apply", "foreach")),
+    ("reductions", ("reduce_kernel", "Reduce")),
+    ("copies and casts", ("copy", "Memcpy")),  # casts run direct_copy_kernel
+    ("memsets and fills", ("Memset", "FillFunctor")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def category(name: str) -> str:
+    for label, keys in CATEGORIES:
+        if any(k in name for k in keys):
+            return label
+    return "other"
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals (us)."""
+    total, end = 0.0, -float("inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def main() -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=list(CONFIGS), default="vox")
+    ap.add_argument("--warm", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, help="write the Chrome trace here (.json.gz)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+
+    cfg = ImageGameConfig(seed=args.seed, **CONFIGS[args.config])
+    rng = np.random.default_rng(args.seed)
+    batches = [
+        {key: torch.from_numpy(rng.integers(
+            0, 256, (cfg.batch_size, n, cfg.img_size, cfg.img_size, cfg.img_channels),
+            dtype=np.uint8)).cuda()
+         for key, n in (("real_sample", cfg.n), ("leaked_sample", cfg.m), ("si_sample", cfg.k))}
+        for _ in range(2)
+    ]
+    state, _ = timg.train_gim_imgs_steps(cfg, itertools.cycle(batches), args.warm, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            timg.train_step(state, batches[state.step % 2])
+        t_enqueued = time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    events = prof.events()
+    # device activities; user annotations (e.g. Optimizer.step) span kernels and are not work
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    if not device:
+        sys.exit("the trace holds no device activity")
+    wall_us = (t1 - t0) * 1e6
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in device)
+    by_cat, by_name = defaultdict(float), defaultdict(float)
+    for e in device:
+        by_cat[category(e.name)] += e.time_range.end - e.time_range.start
+        by_name[e.name] += e.time_range.end - e.time_range.start
+    n = args.steps
+    print(f"{args.config}: B={cfg.batch_size} img={cfg.img_size}x{cfg.img_size}x"
+          f"{cfg.img_channels} style={cfg.style_dim} reg_param={cfg.reg_param} "
+          f"{cfg.compute_dtype}; {n} traced steps after {args.warm}")
+    print(f"  host {wall_us / n / 1e3:.2f} ms/step under the profiler, of which enqueue "
+          f"{(t_enqueued - t0) * 1e3 / n:.2f} ms/step")
+    print(f"  device busy {busy / n / 1e3:.2f} ms/step, idle share {1 - busy / wall_us:.3f}, "
+          f"{len(device) / n:.0f} device activities per step")
+    total = sum(by_cat.values())
+    for label, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+        print(f"  {label:34s} {us / n / 1e3:9.2f} ms/step  {us / total:.3f}")
+    print("  largest kernels (ms/step, category):")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {us / n / 1e3:8.2f}  {category(name)}: {name[:110]}")
+    print("  ops that launched the most device time (ms/step: op < its callers, 4 up):")
+    by_op = defaultdict(float)
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        chain, parent = [e.name], e.cpu_parent
+        while parent is not None and len(chain) < 5:
+            chain.append(parent.name)
+            parent = parent.cpu_parent
+        by_op[" < ".join(chain)] += sum(k.duration for k in e.kernels)
+    for chain, us in sorted(by_op.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"    {us / n / 1e3:8.2f}  {chain}")
+    if args.trace:
+        Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+        print(f"  trace: {args.trace}")
+
+
+if __name__ == "__main__":
+    main()

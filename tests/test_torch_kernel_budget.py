@@ -10,6 +10,10 @@
   output written once, at every site of the flagship train step.
 * The AdaIN kernels' tile plans, forward and backward from one planner:
   one pass over a resident tile at every flagship site.
+* The VoxCeleb step's sites (64x64x3): their bounds, summed per step, and
+  the tiles the planner gives the two AdaIN sites the flagship lacks, a
+  resident tile of 32-channel (K1) and 16-channel (K1b) rows at 32x32x64
+  and the flat tile at 64x64x3.
 """
 
 import jax
@@ -158,3 +162,41 @@ def test_ada_in_tile_is_resident_at_every_flagship_site(direction, site):
 @DIRECTIONS
 def test_ada_in_loops_where_the_tile_would_not_fit(direction):
     assert k1.tile_config(2, 64 * 64, 64, k1.PER_THREAD[direction])["MODE"] == 2
+
+
+# VoxCeleb step: (B', N, C, CQ) and (B', H, W, C) -> launches per step
+K2_VOX_PER_STEP = {(1920, 256, 128, 16): 2, (1280, 256, 128, 16): 2, (128, 256, 128, 16): 2,
+                   (640, 64, 256, 32): 1, (640, 256, 128, 16): 2}
+K1_VOX_PER_STEP = {(640, 4, 4, 512): 11, (640, 8, 8, 256): 2, (640, 16, 16, 128): 2,
+                   (640, 32, 32, 64): 2, (640, 64, 64, 3): 1}
+# the sites the flagship lacks: (direction, site) -> (mode, BLOCK_HW, BLOCK_C, warps)
+VOX_TILES = {("fwd", (640, 32, 32, 64)): (0, 1024, 32, 8), ("bwd", (640, 32, 32, 64)): (0, 1024, 16, 8),
+             ("fwd", (640, 64, 64, 3)): (1, 16384, 1, 8), ("bwd", (640, 64, 64, 3)): (1, 16384, 1, 8)}
+
+
+def test_bounds_summed_over_the_vox_step():
+    k2_ms = sum(n * _us(k2.attention_core_bytes(*s, torch.bfloat16))
+                for s, n in K2_VOX_PER_STEP.items())
+    k1b_ms = sum(n * _us(k1.ada_in_bwd_bytes(*s, torch.bfloat16))
+                 for s, n in K1_VOX_PER_STEP.items())
+    k1_ms = sum(n * _us(k1.ada_in_fwd_bytes(*s, torch.bfloat16))
+                for s, n in K1_VOX_PER_STEP.items())
+    assert (round(k2_ms / 1e3, 4), round(k1b_ms / 1e3, 4), round(k1_ms / 1e3, 4)) == (
+        0.3634, 0.3928, 0.2585)
+    # memory bounds every site: the flops take less at their peak rates
+    for s in K2_VOX_PER_STEP:
+        assert k2.attention_core_flops(*s) / 989e12 * 1e6 < _us(
+            k2.attention_core_bytes(*s, torch.bfloat16))
+    for s in K1_VOX_PER_STEP:
+        assert k1.ada_in_bwd_flops(*s) / 67e12 * 1e6 < _us(k1.ada_in_bwd_bytes(*s, torch.bfloat16))
+
+
+@pytest.mark.parametrize("direction,site", list(VOX_TILES),
+                         ids=[f"{d}-{h}x{w}x{c}" for d, (_, h, w, c) in VOX_TILES])
+def test_ada_in_tiles_at_the_vox_sites(direction, site):
+    b, h, w, c = site
+    cfg = k1.tile_config(b, h * w, c, k1.PER_THREAD[direction])
+    assert (cfg["MODE"], cfg["BLOCK_HW"], cfg["BLOCK_C"], cfg["num_warps"]) == VOX_TILES[
+        (direction, site)]
+    programs = int(np.prod(cfg["grid"]))
+    assert programs * cfg["BLOCK_B"] * cfg["BLOCK_HW"] * cfg["BLOCK_C"] >= b * h * w * c

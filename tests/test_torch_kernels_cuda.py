@@ -16,6 +16,17 @@ here too, and the AdaIN shapes reach each of the kernels' three tile modes; ``ch
 bf16 attention kernel must also round P as its plain version does: at least
 99 % of its outputs equal to the plain version's, a share the same core
 with P left in f32 misses.
+
+The VoxCeleb config (64x64x3, R1) adds two AdaIN sites, [640, 32, 32, 64]
+(resident tile) and [640, 64, 64, 3] (flat tile), and runs the attention
+core under the R1 penalty's double backward: at the authenticator's site
+(N=256, C=128, CQ=16, B' cut from 1920 to 8) the gradient of the squared
+input gradient on the card (kernel forward, torch-op backward) is held to
+the CPU's (plain version) at the same bars, TF32 off; and R1 through the
+authenticator (the penalty, and the loss's parameter gradients; 32x32x3,
+style 64, f32) to the CPU's at 1e-3 of each tensor's largest entry plus
+1e-6 of the player's, as ``chip_smoke.py`` phase 5 holds it at the
+VoxCeleb widths.
 """
 
 import pytest
@@ -189,3 +200,86 @@ def test_attention_kernel_refuses_what_it_does_not_take(gen):
     with pytest.raises(TypeError):
         k1.ada_in_fwd_cuda(_rand(gen, 1, 2, 4, 4, dtype=torch.float16),
                            _rand(gen, 1, 2), _rand(gen, 1, 2))
+
+
+@DTYPES
+@pytest.mark.parametrize("bchw,mode", [((640, 64, 32, 32), "resident"), ((640, 3, 64, 64), "flat")],
+                         ids=["640x32x32x64", "640x64x64x3"])
+def test_adain_kernels_at_the_vox_sites(gen, dtype, bchw, mode):
+    b, c, h, w = bchw
+    for per_thread in k1.PER_THREAD.values():
+        assert k1.MODE_NAMES[k1.tile_config(b, h * w, c, per_thread)["MODE"]] == mode
+    x = _rand(gen, *bchw, dtype=dtype).contiguous(memory_format=torch.channels_last)
+    g = _rand(gen, *bchw, dtype=dtype).contiguous(memory_format=torch.channels_last)
+    ms, ss = _rand(gen, b, c, dtype=dtype), _rand(gen, b, c, dtype=dtype)
+    _close(k1.ada_in_fwd_cuda(x, ms, ss), k1.ada_in_ref(x, ms, ss), dtype)
+    for got, want in zip(k1.ada_in_bwd_cuda(x, ss, g), k1.ada_in_bwd_ref(x, ss, g)):
+        _close(got, want, dtype)
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _penalty_grads(f, g, h, ct):
+    """d/d(f, g, h) of |d sum(core * ct) / d(f, g, h)|^2: a double backward through K2."""
+    leaves = [t.clone().requires_grad_(True) for t in (f, g, h)]
+    first = torch.autograd.grad((k2.attention_core(*leaves).float() * ct).sum(), leaves,
+                                create_graph=True)
+    penalty = sum(d.float().square().sum() for d in first)
+    return torch.autograd.grad(penalty, leaves)
+
+
+@DTYPES
+def test_attention_double_backward_on_the_card_matches_the_cpu(gen, no_tf32, dtype):
+    b, n, c, cq = 8, 256, 128, 16  # the VoxCeleb authenticator's site, B' cut from 1920
+    f, g = (0.5 * _rand(gen, b, n, cq)).to(dtype), (0.5 * _rand(gen, b, n, cq)).to(dtype)
+    h, ct = _rand(gen, b, n, c, dtype=dtype), _rand(gen, b, n, c)
+    before = k2.FWD_LAUNCHES.count
+    got = _penalty_grads(f, g, h, ct)
+    assert k2.FWD_LAUNCHES.count == before + 1  # the double backward launches no forward
+    want = _penalty_grads(f.cpu(), g.cpu(), h.cpu(), ct.cpu())
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        _close(a.cpu(), w, dtype)
+
+
+def test_r1_through_the_kernels_matches_the_cpu(gen, no_tf32):
+    import copy
+
+    from optimalstrategiesagainstgenerativeattacks_torch.models import image as imodels
+    from optimalstrategiesagainstgenerativeattacks_torch.nn.init import init_module
+    from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
+    from optimalstrategiesagainstgenerativeattacks_torch.train.losses import bce_with_logits
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+
+    cfg = ImageGameConfig(img_size=32, img_channels=3, style_dim=64, reg_param=10.0,
+                          compute_dtype="float32", batch_size=2)
+    cpu_gen = torch.Generator().manual_seed(0)
+    au = imodels.get_au(cfg.img_size, cfg.img_channels, cfg.style_dim)
+    init_module(au, cpu_gen)
+    with torch.no_grad():
+        for m in au.modules():
+            if hasattr(m, "gamma"):
+                m.gamma.copy_(0.5 * torch.randn(1, generator=cpu_gen))
+    shape = (cfg.batch_size, cfg.n, cfg.img_size, cfg.img_size, cfg.img_channels)
+    real, fake, si = (torch.rand(*shape, generator=cpu_gen) * 2 - 1 for _ in range(3))
+
+    def run(module, device):
+        r, s = real.to(device).requires_grad_(True), si.to(device).requires_grad_(True)
+        out_real, out_fake = timg.au_outputs(module, r, fake.to(device), s)
+        reg = timg.r1_penalty(cfg, out_real, r, s)
+        loss = (bce_with_logits(out_real, 1.0) + bce_with_logits(out_fake, 0.0) + reg).mean()
+        return reg.detach().cpu(), [x.cpu() for x in torch.autograd.grad(
+            loss, list(module.parameters()))]
+
+    reg_card, grads_card = run(copy.deepcopy(au).cuda(), "cuda")
+    reg_cpu, grads_cpu = run(au, "cpu")
+    assert (reg_card - reg_cpu).abs().max() <= 1e-3 * reg_cpu.abs().max()
+    player = max(w.abs().max().item() for w in grads_cpu)
+    for a, w in zip(grads_card, grads_cpu):
+        assert (a - w).abs().max() <= 1e-3 * w.abs().max() + 1e-6 * player

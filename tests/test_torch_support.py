@@ -123,6 +123,12 @@ def test_port_imports_with_jax_blocked():
         "import optimalstrategiesagainstgenerativeattacks_torch.train.image as t\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.port.transplant\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.kernels.build\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.train.checkpoints\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.train.logger\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.data.episodic\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.data.utils\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.utils.config\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.train_gim_on_imgs\n"
         "au, im = t.build_models(t.ImageGameConfig(img_size=16, style_dim=32))\n"
         "print('ok')\n"
     )

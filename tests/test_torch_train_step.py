@@ -25,9 +25,16 @@ Compared after the step:
   * the new spectral u/v of both players, atol 1e-6;
   * the metrics, rtol 1e-4 / atol 1e-6;
   * the new parameters.  With beta1 = 0 the first Adam step is about
-    lr * sign(g), which is ill-conditioned where |g| is near Adam's eps.
-    So parameters are compared to f32 rounding (atol 1e-7, rtol 1e-6)
-    where |g| > 1e-6, and within 2 * lr of the reference elsewhere.
+    lr * sign(g), which is ill-conditioned where |g| is near Adam's eps, and
+    moves a parameter 2 lr away from the reference where the two gradients
+    agree within the tolerance above but not in sign.  So parameters are
+    compared to f32 rounding (atol 1e-7, rtol 1e-6) where |g| > 1e-6 and
+    both signs agree, and within 2 * lr of the reference elsewhere.
+
+Two cases: the flagship's ``reg_param = 0`` on one channel, and the R1 case
+(``reg_param = 10``, three channels, as the VoxCeleb config), whose
+authenticator gradient runs a double backward through the encoders.  Both
+hold the same tolerances; the R1 metrics include ``au_reg``.
 """
 
 import jax
@@ -75,9 +82,13 @@ def _adam_mu(opt_state):
     return unflatten_dict(merged)
 
 
-@pytest.fixture(scope="module")
-def one_step():
-    cfg = small_cfg()
+# the flagship's reg_param = 0 on one channel, and the VoxCeleb config's R1 on three
+CASES = {"reg0": dict(), "r1": dict(reg_param=10.0, img_channels=3)}
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def one_step(request):
+    cfg = small_cfg(**CASES[request.param])
     jau, jim, av, iv = init_jax_players(cfg)
     batch = uint8_batch(cfg, seed=3)
     tstate = torch_state_from(cfg, av, iv)
@@ -149,10 +160,11 @@ def test_step_params_match_jax(one_step, player):
     want = flax_to_state_dict(jax.tree.map(np.asarray, getattr(jstate, f"params_{player}")), {})
     grads = flax_to_state_dict(_adam_mu(getattr(jstate, f"opt_{player}")), {})
     got = {k: p.detach().numpy() for k, p in getattr(tstate, player).named_parameters()}
+    got_grads = _torch_grads(tstate, player)
     for k, p in got.items():
         lr = cfg.au_lr if player == "au" else (
             cfg.env_noise_mapping_lr if k.startswith("env_noise_mapper.") else cfg.im_lr)
-        big = np.abs(grads[k]) > 1e-6
+        big = (np.abs(grads[k]) > 1e-6) & (np.sign(grads[k]) == np.sign(got_grads[k]))
         np.testing.assert_allclose(p[big], want[k][big], rtol=1e-6, atol=1e-7, err_msg=k)
         assert np.all(np.abs(p[~big] - want[k][~big]) <= 2 * lr), k
 
@@ -184,10 +196,3 @@ def test_three_steps_stay_finite_and_n_au_steps_gates_the_impersonator():
     assert tuple(fake.shape) == (cfg.batch_size, cfg.n, cfg.img_size, cfg.img_size, 1)
     assert fake.abs().max() <= 1.0
 
-
-def test_r1_penalty_is_not_ported_yet():
-    cfg = small_cfg(reg_param=10.0)
-    au, im = timg.build_models(cfg)
-    state = timg.create_state(cfg, au, im, 0, "cpu")
-    with pytest.raises(NotImplementedError):
-        timg.train_step(state, uint8_batch(cfg, seed=0))
