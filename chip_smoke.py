@@ -1,6 +1,6 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--steps N] [--vox_steps N]
+    python3 chip_smoke.py [--seed N] [--steps N]
 
 Phases (each prints its lines; the first failure exits non-zero):
   1. card:    require CUDA; print the card's name and power limit;
@@ -104,6 +104,7 @@ VOX_LAUNCHES = {
     "sample": {"adain_fwd": sum(VOX_ADAIN_SITES.values()), "adain_bwd": 0,
                "attention_core_fwd": 5},
 }
+VOX_STEPS = 3  # timed steady VoxCeleb steps after the loop
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2.0 ** -6)}  # (atol, rtol)
 SLICE_TOL = 1e-3  # f32 forward, card vs CPU, TF32 off: |err| <= tol * max(1, max|ref|)
 # f32 R1 penalty and authenticator gradients, card vs CPU, TF32 off: per tensor
@@ -725,7 +726,7 @@ def check_launches(what: str, counters, calls: dict) -> dict:
     return got
 
 
-def run_vox(seed: int, n_steady: int, counters) -> dict:
+def run_vox(seed: int, counters) -> dict:
     """The VoxCeleb config through the loop, sample, eval, steady steps and a resume."""
     import dataclasses
 
@@ -807,10 +808,10 @@ def run_vox(seed: int, n_steady: int, counters) -> dict:
     for c in counters:
         c.reset()
     t0 = time.perf_counter()
-    state, steady = timg.train_gim_imgs_steps(cfg, itertools.cycle(batches), n_steady,
+    state, steady = timg.train_gim_imgs_steps(cfg, itertools.cycle(batches), VOX_STEPS,
                                               state=state)
-    step_s = (time.perf_counter() - t0) / n_steady
-    check_launches(f"{n_steady} steady steps", counters, {"train_step": n_steady})
+    step_s = (time.perf_counter() - t0) / VOX_STEPS
+    check_launches(f"{VOX_STEPS} steady steps", counters, {"train_step": VOX_STEPS})
     if not all(math.isfinite(v) for m in steady for v in m.values()):
         fail("steady steps: non-finite metrics")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -848,12 +849,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=6)
-    ap.add_argument("--vox_steps", type=int, default=3, help="timed steady VoxCeleb steps")
     args = ap.parse_args()
     if args.steps < 2:
         fail("--steps must be at least 2 (the first step is warm-up)")
-    if args.vox_steps < 1:
-        fail("--vox_steps must be at least 1")
 
     print("[1/7] card", flush=True)
     if not torch.cuda.is_available():
@@ -918,8 +916,8 @@ def main() -> None:
         results[name]["launches"] = launches[name]
 
     print(f"[7/7] vox: the VoxCeleb config through train_gim_imgs, then sample, eval_step, "
-          f"{args.vox_steps} steady steps and a resume", flush=True)
-    for name, n in run_vox(args.seed, args.vox_steps, counters).items():
+          f"{VOX_STEPS} steady steps and a resume", flush=True)
+    for name, n in run_vox(args.seed, counters).items():
         results[name]["vox_launches"] = n
 
     print(smi_line())

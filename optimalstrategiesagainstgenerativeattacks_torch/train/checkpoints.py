@@ -70,9 +70,9 @@ class CheckpointIO:
         return payload["global_step"], payload["last_epoch"]
 
 
-def get_latest_ckpt(ckpt_dir_path: str, prefix: str = CKPT_PREFIX) -> str:
+def get_latest_ckpt(ckpt_dir_path: str) -> str:
     """Latest checkpoint path by the largest step in the name."""
-    pat = re.compile(re.escape(prefix) + r"(\d+)$")
+    pat = re.compile(re.escape(CKPT_PREFIX) + r"(\d+)$")
     entries = []
     for name in os.listdir(ckpt_dir_path):
         m = pat.match(name)

@@ -119,12 +119,6 @@ def make_optimizers(cfg: ImageGameConfig, au, im):
     return opt_au, opt_im, sched_au, sched_im
 
 
-def lr_at(cfg: ImageGameConfig, base_lr: float, step: int) -> float:
-    """The scheduled LR at optimizer step ``step`` (the reference's piecewise-constant
-    schedule: times lr_gamma for every milestone <= step)."""
-    return base_lr * cfg.lr_gamma ** sum(int(m) <= step for m in cfg.milestones)
-
-
 def create_state(cfg: ImageGameConfig, au, im, seed: int, device) -> GameState:
     """Initialise both players from ``seed`` (on the CPU), move them to ``device``,
     and build the optimizers and the noise generator."""
@@ -350,12 +344,10 @@ def sample_and_save_imgs(logger, state: GameState, ds, ds_prefix: str, indices,
             logger.add_imgs(_to_01(data["si_sample"] / 127.5 - 1.0), cat, "si", gs)
 
 
-def run_eval(state: GameState, ds, logger, batch_size: int, generator: torch.Generator,
-             num_workers: int = 0) -> dict:
+def run_eval(state: GameState, ds, logger, batch_size: int, generator: torch.Generator) -> dict:
     """Eval over the val set (the reference's ``gim_img_training.py:98-154``),
     logging the means; the sums reach the host in one transfer."""
-    loader = EpisodicBatchLoader(ds, batch_size=batch_size, shuffle=False, drop_last=True,
-                                 num_workers=num_workers)
+    loader = EpisodicBatchLoader(ds, batch_size=batch_size, shuffle=False, drop_last=True)
     sums, count = None, 0
     for batch in loader:
         m = eval_step(state, batch, generator)
@@ -442,9 +434,11 @@ def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress
         arr = log_buf[:buf_count].cpu().numpy()  # one transfer
         host = {k: arr[:, i] for i, k in enumerate(METRIC_KEYS)}
         buf_count = 0
-        logger.add_scalar("lr", "au", lr_at(cfg, cfg.au_lr, gs), gs)
-        logger.add_scalar("lr", "im", lr_at(cfg, cfg.im_lr, gs), gs)
-        logger.add_scalar("lr", "im_lm", lr_at(cfg, cfg.env_noise_mapping_lr, gs), gs)
+        # the schedulers' LRs, those the next optimizer steps take
+        im_lr, noise_lr = state.sched_im.get_last_lr()
+        logger.add_scalar("lr", "au", state.sched_au.get_last_lr()[0], gs)
+        logger.add_scalar("lr", "im", im_lr, gs)
+        logger.add_scalar("lr", "im_lm", noise_lr, gs)
 
         def mean(k):
             return float(np.mean(host[k]))

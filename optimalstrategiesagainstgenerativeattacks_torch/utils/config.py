@@ -10,8 +10,8 @@ keys it does not know, so an ``args.json`` written by the reference (with
 its TPU-only keys) loads.
 
 ``save_args`` / ``load_args`` snapshot a run's arguments to
-``<outdir>/args.json`` as flat JSON with the reference's key names, and map
-the old ``target_img_size`` key onto ``img_size`` on load.
+``<outdir>/args.json`` as flat JSON with the reference's key names;
+``from_dict`` maps the old ``target_img_size`` key onto ``img_size``.
 """
 
 from __future__ import annotations
@@ -34,12 +34,9 @@ def save_args(args, outdir: str) -> str:
 
 
 def load_args(outdir: str) -> dict:
-    """Load the args.json snapshot; applies the target_img_size back-compat shim."""
+    """Load the args.json snapshot as a dict (``ImageGameConfig.from_dict`` reads it)."""
     with open(os.path.join(outdir, "args.json")) as f:
-        args_dict = json.load(f)
-    if "img_size" not in args_dict and "target_img_size" in args_dict:
-        args_dict["img_size"] = args_dict["target_img_size"]
-    return args_dict
+        return json.load(f)
 
 
 @dataclass

@@ -25,17 +25,42 @@ Compared after the step:
   * the new spectral u/v of both players, atol 1e-6;
   * the metrics, rtol 1e-4 / atol 1e-6;
   * the new parameters.  With beta1 = 0 the first Adam step is about
-    lr * sign(g), which is ill-conditioned where |g| is near Adam's eps, and
-    moves a parameter 2 lr away from the reference where the two gradients
-    agree within the tolerance above but not in sign.  So parameters are
-    compared to f32 rounding (atol 1e-7, rtol 1e-6) where |g| > 1e-6 and
-    both signs agree, and within 2 * lr of the reference elsewhere.
+    lr * sign(g), which is ill-conditioned where |g| is near Adam's eps.
+    So parameters are compared to f32 rounding (atol 1e-7, rtol 1e-6)
+    where |g| > 1e-6, and within 2 * lr of the reference elsewhere.  In the
+    R1 case an entry of the env encoder, past the set std, can have a
+    gradient above 1e-6 that is still within the gradient comparison's
+    floor of its tensor (2e-3 of its largest entry): the two programs'
+    rounding then decides its sign, and Adam moves it 2 lr apart (one entry
+    of 9214 in ``encoders.env.down_1.conv_r2.weight``, as the suite runs the
+    reference).  There, at most 4 entries a tensor whose gradients take
+    opposite signs, each within that floor, are held to 2 lr as well.
 
 Two cases: the flagship's ``reg_param = 0`` on one channel, and the R1 case
 (``reg_param = 10``, three channels, as the VoxCeleb config), whose
 authenticator gradient runs a double backward through the encoders.  Both
 hold the same tolerances; the R1 metrics include ``au_reg``.
+
+The R1 case in bf16 (``test_bf16_r1_step_matches_jax``) holds the port's
+bf16 step, as ``test_torch_models.py`` holds the bf16 players, to be no
+further from the f32 reference step than the reference's own bf16 step is.
+Its yardstick is the authenticator's gradient past the double backward,
+over the src encoder and the head: per tensor, the relative (Frobenius)
+error against the f32 reference; in mean over the tensors within a factor
+of 1.5 of the reference's bf16 step as XLA compiles it by default, and in
+max within a factor of 1 of the reference compiled with every bf16 rounding
+its code writes (``xla_allow_excess_precision`` off).  The env encoder is
+left out: past the set std (see above) the bf16 gradient of either side is
+as far from the f32 one as the gradient is large.  So is the attention f
+bias, whose gradient is zero in exact arithmetic.  The metrics are held to
+the f32 reference step within the card's bf16 kernel bar, atol 1e-2 plus
+2^-6 of the value.  Over the batch seeds 3-8 the mean held on all six,
+the max on five (seed 6: 1.18 times the reference's); the test takes the
+batch of the f32 cases.
 """
+
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +75,7 @@ from optimalstrategiesagainstgenerativeattacks_tpu.train import image as jimg
 from optimalstrategiesagainstgenerativeattacks_tpu.train.state import GameState
 from test_torch_support import (
     init_jax_players,
+    jax_build,
     jax_cfg,
     small_cfg,
     torch_state_from,
@@ -86,13 +112,10 @@ def _adam_mu(opt_state):
 CASES = {"reg0": dict(), "r1": dict(reg_param=10.0, img_channels=3)}
 
 
-@pytest.fixture(scope="module", params=list(CASES))
-def one_step(request):
-    cfg = small_cfg(**CASES[request.param])
-    jau, jim, av, iv = init_jax_players(cfg)
-    batch = uint8_batch(cfg, seed=3)
-    tstate = torch_state_from(cfg, av, iv)
-
+def _reference_step(cfg, av, iv, batch, excess_precision=True):
+    """One reference step from the transplanted state -> (new state, metrics,
+    the impersonator's noise draw as f32 numpy)."""
+    jau, jim = jax_build(cfg)
     jcfg = jax_cfg(cfg)
     opt_au, opt_im, _ = jimg.make_optimizers(jcfg)
     jstate = GameState(
@@ -101,20 +124,39 @@ def one_step(request):
         opt_au=opt_au.init(av["params"]), opt_im=opt_im.init(iv["params"]),
         rng=jax.random.PRNGKey(7),
     )
-    # the reference step's noise draw: rng, k_noise = split(fold_in(rng, step)); z at the root
+    # the reference step's noise draw: rng, k_noise = split(fold_in(rng, step)); z at the
+    # root, in the compute dtype
     _, k_noise = jax.random.split(jax.random.fold_in(jstate.rng, 0))
     shape = (cfg.batch_size, cfg.n, cfg.style_dim)
-    z = np.asarray(jim.apply(iv, method=lambda m: jax.random.normal(m.make_rng("noise"), shape),
-                             rngs={"noise": k_noise}))
+    z_dtype = jnp.bfloat16 if cfg.compute_dtype == "bfloat16" else jnp.float32
+    z = jim.apply(iv, method=lambda m: jax.random.normal(m.make_rng("noise"), shape, z_dtype),
+                  rngs={"noise": k_noise})
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    options = None if excess_precision else {"xla_allow_excess_precision": False}
+    step_fn = jax.jit(jimg.make_train_step_fn(jcfg, jau, jim, opt_au, opt_im)).lower(
+        jstate, jbatch).compile(compiler_options=options)
+    new_jstate, jmetrics, _ = step_fn(jstate, jbatch)
+    return new_jstate, {k: float(v) for k, v in jmetrics.items()}, np.asarray(z, np.float32)
 
-    step_fn = jax.jit(jimg.make_train_step_fn(jcfg, jau, jim, opt_au, opt_im))
-    new_jstate, jmetrics, _ = step_fn(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+
+@functools.cache
+def _step_case(name):
+    cfg = small_cfg(**CASES[name])
+    _, _, av, iv = init_jax_players(cfg)
+    batch = uint8_batch(cfg, seed=3)
+    new_jstate, jmetrics, z = _reference_step(cfg, av, iv, batch)
+    tstate = torch_state_from(cfg, av, iv)
     tmetrics, _ = timg.train_step(tstate, batch, z=torch.from_numpy(z.copy()))
-    return cfg, new_jstate, {k: float(v) for k, v in jmetrics.items()}, tstate, \
-        {k: float(v) for k, v in tmetrics.items()}, (av, iv)
+    return cfg, new_jstate, jmetrics, tstate, {k: float(v) for k, v in tmetrics.items()}, (av, iv)
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def one_step(request):
+    return _step_case(request.param)
 
 
 PLAYERS = ["au", "im"]
+MAX_R1_SIGN_FLIPS = 4  # per tensor
 
 
 def _torch_grads(tstate, player):
@@ -123,18 +165,23 @@ def _torch_grads(tstate, player):
     return {k: opt.state[p]["exp_avg"].numpy() for k, p in module.named_parameters()}
 
 
+def _grad_floors(want, player):
+    """The gradient comparison's absolute floor of each tensor (see the module docstring)."""
+    player_max = max(np.abs(w).max() for w in want.values())
+    # only the authenticator's src encoder and head lie outside the set std's reach
+    return {k: max((2e-3 if player == "im" or k.startswith("encoders.env.") else 1e-4)
+                   * np.abs(w).max(), 1e-6 * player_max) for k, w in want.items()}
+
+
 @pytest.mark.parametrize("player", PLAYERS)
 def test_step_gradients_match_jax(one_step, player):
     _, jstate, _, tstate, _, _ = one_step
     want = flax_to_state_dict(_adam_mu(getattr(jstate, f"opt_{player}")), {})
     got = _torch_grads(tstate, player)
     assert set(got) == set(want)
-    player_max = max(np.abs(w).max() for w in want.values())
+    floors = _grad_floors(want, player)
     for k, g in got.items():
-        # only the authenticator's src encoder and head lie outside the set std's reach
-        past_set_std = player == "im" or k.startswith("encoders.env.")
-        floor = max((2e-3 if past_set_std else 1e-4) * np.abs(want[k]).max(), 1e-6 * player_max)
-        np.testing.assert_allclose(g, want[k], rtol=1e-3, atol=floor, err_msg=k)
+        np.testing.assert_allclose(g, want[k], rtol=1e-3, atol=floors[k], err_msg=k)
 
 
 @pytest.mark.parametrize("player", PLAYERS)
@@ -160,11 +207,18 @@ def test_step_params_match_jax(one_step, player):
     want = flax_to_state_dict(jax.tree.map(np.asarray, getattr(jstate, f"params_{player}")), {})
     grads = flax_to_state_dict(_adam_mu(getattr(jstate, f"opt_{player}")), {})
     got = {k: p.detach().numpy() for k, p in getattr(tstate, player).named_parameters()}
-    got_grads = _torch_grads(tstate, player)
+    got_grads, floors = _torch_grads(tstate, player), _grad_floors(grads, player)
     for k, p in got.items():
         lr = cfg.au_lr if player == "au" else (
             cfg.env_noise_mapping_lr if k.startswith("env_noise_mapper.") else cfg.im_lr)
-        big = (np.abs(grads[k]) > 1e-6) & (np.sign(grads[k]) == np.sign(got_grads[k]))
+        big = np.abs(grads[k]) > 1e-6
+        if cfg.reg_param > 0:
+            # R1: a few entries whose gradient lies within the gradient test's
+            # floor may take the other sign (module docstring)
+            flipped = big & (np.sign(grads[k]) != np.sign(got_grads[k]))
+            assert flipped.sum() <= MAX_R1_SIGN_FLIPS, (k, int(flipped.sum()))
+            assert np.all(np.abs(grads[k][flipped]) <= floors[k]), k
+            big &= ~flipped
         np.testing.assert_allclose(p[big], want[k][big], rtol=1e-6, atol=1e-7, err_msg=k)
         assert np.all(np.abs(p[~big] - want[k][~big]) <= 2 * lr), k
 
@@ -196,3 +250,28 @@ def test_three_steps_stay_finite_and_n_au_steps_gates_the_impersonator():
     assert tuple(fake.shape) == (cfg.batch_size, cfg.n, cfg.img_size, cfg.img_size, 1)
     assert fake.abs().max() <= 1.0
 
+
+
+def test_bf16_r1_step_matches_jax():
+    cfg, jstate32, jmetrics32, _, _, (av, iv) = _step_case("r1")
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    batch = uint8_batch(cfg, seed=3)
+    as_written, _, z = _reference_step(cfg16, av, iv, batch, excess_precision=False)
+    default, _, _ = _reference_step(cfg16, av, iv, batch)
+    tstate = torch_state_from(cfg16, av, iv)
+    tmetrics, _ = timg.train_step(tstate, batch, z=torch.from_numpy(z.copy()))
+
+    def au_grads(jstate):
+        return flax_to_state_dict(_adam_mu(jstate.opt_au), {})
+
+    want = au_grads(jstate32)
+    keys = [k for k in want if not k.startswith("encoders.env.") and not k.endswith("att.conv_f.bias")]
+
+    def rel_errors(got):
+        return np.array([np.linalg.norm(got[k] - want[k]) / np.linalg.norm(want[k]) for k in keys])
+
+    port = rel_errors(_torch_grads(tstate, "au"))
+    assert port.mean() <= 1.5 * rel_errors(au_grads(default)).mean()
+    assert port.max() <= rel_errors(au_grads(as_written)).max()
+    for k in timg.METRIC_KEYS:
+        assert abs(float(tmetrics[k]) - jmetrics32[k]) <= 1e-2 + 2.0 ** -6 * abs(jmetrics32[k]), k
