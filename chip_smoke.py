@@ -9,8 +9,8 @@ Phases (each prints its lines; the first failure exits non-zero):
               the tensor-core instructions of the bf16 attention kernel
               (cuobjdump);
   3. kernels: each kernel against its plain PyTorch version at every site
-              the flagship and the VoxCeleb train steps give it, in bf16
-              and f32; then, in bf16, the device time of the kernel, its
+              the flagship and the VoxCeleb train steps and eval batches
+              give it, in bf16 and f32; then, in bf16, the device time of the kernel, its
               plain version and (attention) the one PyTorch call for the
               same function, each call after a write of a 128 MB buffer
               that evicts L2, from torch.profiler's CUDA kernel records
@@ -37,16 +37,31 @@ Phases (each prints its lines; the first failure exits non-zero):
               then ``sample`` and ``eval_step`` once each, steady steps
               (steps/s, images/s, peak memory) and a resume from the
               checkpoint for one step; every launch count must be the one
-              expected.
+              expected;
+  8. eval:    the flagship eval grid: 2 flagship steps and a checkpoint, the
+              Siamese baseline trained for 4 batch-hard steps (then its
+              steps/s), and ``eval_authentication_task`` (gim and siamese
+              authenticators x gim, replay and rnd_src attackers, batches
+              of 64, calibration columns, score dumps) over 520 in-memory
+              episodes; checks the CSV, 520 finite scores a side a row, the
+              AUCs and every launch count (K1b none); prints each row's
+              seconds and episodes/s; then the gim and Siamese scores of one
+              batch, f32, card against CPU;
+  9. vox eval: ArcFace (ir_se, 50 layers, 64x64x3, emb 512) trained for 3
+              steps of 128 (then its steps/s), and the grid with the ArcFace
+              baseline against phase 7's checkpoint over 160 episodes, with
+              the same checks; the ArcFace scores card against CPU.
 The second-to-last line is a JSON summary of the kernels, with times per
-flagship step and per VoxCeleb step (sum over sites of ms x launches per
-step); the last line is {"ok": true, "device": {...}}.
+flagship step, per VoxCeleb step and per gim-vs-gim eval batch of each
+config (sum over sites of ms x launches), and the launches of each run;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import csv
 import itertools
 import json
 import math
@@ -105,6 +120,49 @@ VOX_LAUNCHES = {
                "attention_core_fwd": 5},
 }
 VOX_STEPS = 3  # timed steady VoxCeleb steps after the loop
+# the eval grid's batch of 64 episodes (n = k = 5): one authenticator call
+# encodes test + si = 640 images, one impersonator call generates B' = 320;
+# sites of one gim-vs-gim batch (two authenticator calls, one impersonator call)
+EVAL_BATCH = 64
+EVAL_EPISODES, VOX_EVAL_EPISODES = 520, 160  # 8 batches + a padded ninth; 2 + a padded third
+ARCFACE_BATCH = 128
+EVAL_DEVICE = "cuda"  # of phases 8 and 9
+EVAL_ADAIN_SITES = {  # per impersonator call
+    (320, 512, 4, 4): 11,
+    (320, 256, 8, 8): 2,
+    (320, 128, 16, 16): 2,
+    (320, 1, 32, 32): 1,
+}
+EVAL_ATTENTION_SITES = {
+    (640, 64, 256, 32): 4,    # authenticator encoders, 2 per call
+    (64, 64, 256, 32): 2,     # impersonator encoders on the leaked images
+    (320, 64, 128, 16): 1,    # env decoder
+    (320, 64, 256, 32): 1,    # img2img down stage
+    (320, 256, 128, 16): 1,   # img2img up stage
+}
+VOX_EVAL_ADAIN_SITES = {
+    (320, 512, 4, 4): 11,
+    (320, 256, 8, 8): 2,
+    (320, 128, 16, 16): 2,
+    (320, 64, 32, 32): 2,
+    (320, 3, 64, 64): 1,
+}
+VOX_EVAL_ATTENTION_SITES = {
+    (640, 256, 128, 16): 4,   # authenticator encoders, 2 per call
+    (64, 256, 128, 16): 2,    # impersonator encoders on the leaked images
+    (320, 64, 256, 32): 1,    # env decoder
+    (320, 256, 128, 16): 2,   # img2img down and up stages
+}
+AU_CALL_ATTENTION = 2  # K2 launches of one GIM authenticator call
+IM_TYPES = ("gim", "replay", "rnd_src")
+# key prefixes of the kernels' JSON and the unit each sums over; the site
+# tables of each, in this order
+PER_CONFIG = {"": "flagship step", "vox_": "VoxCeleb step",
+              "eval_": "flagship eval batch (gim vs gim)",
+              "vox_eval_": "VoxCeleb eval batch (gim vs gim)"}
+ADAIN_TABLES = (ADAIN_SITES, VOX_ADAIN_SITES, EVAL_ADAIN_SITES, VOX_EVAL_ADAIN_SITES)
+ATTENTION_TABLES = (ATTENTION_SITES, VOX_ATTENTION_SITES, EVAL_ATTENTION_SITES,
+                    VOX_EVAL_ATTENTION_SITES)
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2.0 ** -6)}  # (atol, rtol)
 SLICE_TOL = 1e-3  # f32 forward, card vs CPU, TF32 off: |err| <= tol * max(1, max|ref|)
 # f32 R1 penalty and authenticator gradients, card vs CPU, TF32 off: per tensor
@@ -114,6 +172,7 @@ R1_TOL = 1e-3
 # NVIDIA H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16_tensor": 989e12, "f32": 67e12}
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 L2_FLUSH_BYTES = 128 << 20  # > the 50 MB L2: each timed call finds its inputs cold
 TIMED_CALLS = 20
 
@@ -259,12 +318,17 @@ def tile_text(cfg: dict) -> str:
             f"{math.prod(cfg['grid'])} programs")
 
 
+def launches_key(prefix: str) -> str:
+    """The kernels' JSON key of launches per unit: a train step, or an eval batch."""
+    return f"{prefix}launches_per_{'batch' if prefix.endswith('eval_') else 'step'}"
+
+
 def add_site(results: dict, prefix: str, name: str, per_step: int, k_ms: float, p_ms: float,
              bound_ms: float, bound_by: str, lib_ms=None) -> None:
-    """Add one site's times, x its launches per step, to a kernel's per-step sums
-    of one config (``prefix`` "" for the flagship, "vox_" for VoxCeleb)."""
+    """Add one site's times, x its launches per unit, to a kernel's per-unit sums
+    of one config (``prefix``: a key of PER_CONFIG)."""
     r = results[name]
-    r[f"{prefix}launches_per_step"] += per_step
+    r[launches_key(prefix)] += per_step
     r[f"{prefix}ms"] += per_step * k_ms
     r[f"{prefix}plain_ms"] += per_step * p_ms
     r[f"{prefix}bound_ms"] += per_step * bound_ms
@@ -274,7 +338,7 @@ def add_site(results: dict, prefix: str, name: str, per_step: int, k_ms: float, 
 
 
 def per_step_text(site, *tables) -> str:
-    return ", ".join(f"x{t[site]} per {name} step" for name, t in zip(("flagship", "vox"), tables)
+    return ", ".join(f"x{t[site]} per {name}" for name, t in zip(PER_CONFIG.values(), tables)
                      if site in t)
 
 
@@ -295,7 +359,7 @@ def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> dict
     sites, times = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
-        for b, c, h, w in union(ADAIN_SITES, VOX_ADAIN_SITES):
+        for b, c, h, w in union(*ADAIN_TABLES):
             def rand(*shape):
                 return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
@@ -303,7 +367,7 @@ def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> dict
             g = rand(b, c, h, w).contiguous(memory_format=torch.channels_last)
             ms, ss = rand(b, c), rand(b, c)
             tag = f"adain {dtype_name(dtype)} [{b},{h},{w},{c}]"
-            print(f"  {tag} ({per_step_text((b, c, h, w), ADAIN_SITES, VOX_ADAIN_SITES)})")
+            print(f"  {tag} ({per_step_text((b, c, h, w), *ADAIN_TABLES)})")
             fwd_err = compare("fwd", k1.ada_in_fwd_cuda(x, ms, ss), k1.ada_in_ref(x, ms, ss),
                               atol, rtol)
             got = k1.ada_in_bwd_cuda(x, ss, g)
@@ -328,7 +392,7 @@ def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> dict
     print("  timing the bf16 sites (device time, L2 evicted before each call)", flush=True)
     t = timer.run()
     for tag, (b, c, h, w) in sites:
-        print(f"  {tag} ({per_step_text((b, c, h, w), ADAIN_SITES, VOX_ADAIN_SITES)})")
+        print(f"  {tag} ({per_step_text((b, c, h, w), *ADAIN_TABLES)})")
         times[(b, c, h, w)] = {}
         for d, name, n_bytes, flops in (
                 ("fwd", "adain_fwd", k1.ada_in_fwd_bytes(b, h, w, c, torch.bfloat16),
@@ -360,14 +424,14 @@ def check_attention(gen: torch.Generator, results: dict, timer: DeviceTimer) -> 
     sites, times = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
-        for b, n, c, cq in union(ATTENTION_SITES, VOX_ATTENTION_SITES):
+        for b, n, c, cq in union(*ATTENTION_TABLES):
             def rand(*shape, scale=1.0):
                 return (scale * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
 
             f, g, h = rand(b, n, cq, scale=0.5), rand(b, n, cq, scale=0.5), rand(b, n, c)
             dout = rand(b, n, c)
             tag = f"attention {dtype_name(dtype)} B'={b} N={n} C={c} CQ={cq}"
-            print(f"  {tag} ({per_step_text((b, n, c, cq), ATTENTION_SITES, VOX_ATTENTION_SITES)})")
+            print(f"  {tag} ({per_step_text((b, n, c, cq), *ATTENTION_TABLES)})")
             fwd_err = compare("fwd", k2.attention_core_cuda(f, g, h),
                               k2.attention_core_ref(f, g, h), atol, rtol)
             leaves = [t.clone().requires_grad_(True) for t in (f, g, h)]
@@ -391,7 +455,7 @@ def check_attention(gen: torch.Generator, results: dict, timer: DeviceTimer) -> 
     print("  timing the bf16 sites (device time, L2 evicted before each call)", flush=True)
     t = timer.run()
     for tag, (b, n, c, cq) in sites:
-        print(f"  {tag} ({per_step_text((b, n, c, cq), ATTENTION_SITES, VOX_ATTENTION_SITES)})")
+        print(f"  {tag} ({per_step_text((b, n, c, cq), *ATTENTION_TABLES)})")
         k_ms, p_ms = t[f"{tag} kernel"][0], t[f"{tag} plain"][0]
         lib_ms, lib_ops = t[f"{tag} library"]
         b_ms, b_by = bound(k2.attention_core_bytes(b, n, c, cq, torch.bfloat16),
@@ -404,11 +468,26 @@ def check_attention(gen: torch.Generator, results: dict, timer: DeviceTimer) -> 
 
 
 def add_config(results: dict, prefix: str, tables, times: dict) -> None:
-    """Sum the timed sites of one config's per-step tables into ``results``."""
+    """Sum the timed sites of one config's per-unit tables into ``results`` (an eval
+    batch runs no backward)."""
     for table in tables:
         for site, per_step in table.items():
             for name, (k_ms, p_ms, b_ms, b_by, lib_ms) in times[site].items():
-                add_site(results, prefix, name, per_step, k_ms, p_ms, b_ms, b_by, lib_ms)
+                if not (prefix.endswith("eval_") and name == "adain_bwd"):
+                    add_site(results, prefix, name, per_step, k_ms, p_ms, b_ms, b_by, lib_ms)
+
+
+def eval_launches_per_batch(adain_table: dict, attention_table: dict, baseline: str) -> dict:
+    """{"<au>_vs_<im>": {kernel: launches}} of one eval batch of each pairing: the GIM
+    impersonator runs every AdaIN site and its own attention sites, each GIM
+    authenticator call (two a batch) its encoders' attention."""
+    au_attention = 2 * AU_CALL_ATTENTION
+    im_attention = sum(attention_table.values()) - au_attention
+    return {f"{au}_vs_{im}": {
+        "adain_fwd": sum(adain_table.values()) if im == "gim" else 0, "adain_bwd": 0,
+        "attention_core_fwd": (au_attention if au == "gim" else 0)
+        + (im_attention if im == "gim" else 0)}
+        for au in ("gim", baseline) for im in IM_TYPES}
 
 
 def report_cuda_build(so) -> None:
@@ -562,16 +641,23 @@ def run_train(seed: int, n_steps: int, counters) -> dict:
     return launches
 
 
-PER_CONFIG = ("", "vox_")  # key prefixes of the kernels' JSON: the flagship step, the VoxCeleb step
-
-
 def kernel_results() -> dict:
-    """Each kernel's JSON entry, its per-step sums at zero."""
+    """Each kernel's JSON entry, its per-unit sums at zero, and its launches per eval
+    batch of each pairing (the flagship grid's with the Siamese baseline, the
+    VoxCeleb grid's with ArcFace)."""
+    pairings = {
+        "eval_": eval_launches_per_batch(EVAL_ADAIN_SITES, EVAL_ATTENTION_SITES, "siamese"),
+        "vox_eval_": eval_launches_per_batch(VOX_EVAL_ADAIN_SITES, VOX_EVAL_ATTENTION_SITES,
+                                             "arcface"),
+    }
     return {
         name: {"name": name, "route": route, "source": src, "replaces": rep,
-               "launches": 0, "vox_launches": 0, "max_abs_err": 0.0,
+               "launches": 0, "vox_launches": 0, "eval_launches": 0, "vox_eval_launches": 0,
+               **{f"{p}launches_per_batch_by_pairing": {pair: n[name] for pair, n in table.items()}
+                  for p, table in pairings.items()},
+               "max_abs_err": 0.0,
                **{f"{p}{k}": v for p in PER_CONFIG
-                  for k, v in (("launches_per_step", 0), ("ms", 0.0), ("plain_ms", 0.0),
+                  for k, v in ((launches_key(p)[len(p):], 0), ("ms", 0.0), ("plain_ms", 0.0),
                                ("library_ms", None), ("bound_ms", 0.0), ("bound_by", None),
                                ("share_of_bound", None))},
                "_bound_by": {p: {"bytes": 0.0, "operations": 0.0} for p in PER_CONFIG}}
@@ -589,19 +675,21 @@ def kernel_results() -> dict:
 
 def summarise(results: dict, times: dict) -> None:
     """Sum the timed sites into per-step times of each config; print them."""
-    add_config(results, "", (ADAIN_SITES, ATTENTION_SITES), times)
-    add_config(results, "vox_", (VOX_ADAIN_SITES, VOX_ATTENTION_SITES), times)
+    for p, adain, attention in zip(PER_CONFIG, ADAIN_TABLES, ATTENTION_TABLES):
+        add_config(results, p, (adain, attention), times)
     for r in results.values():
         by = r.pop("_bound_by")
         for p in PER_CONFIG:
+            if r[launches_key(p)] == 0:  # K1b in the eval batches
+                continue
             r[f"{p}bound_by"] = max(by[p], key=by[p].get)
             r[f"{p}share_of_bound"] = r[f"{p}bound_ms"] / r[f"{p}ms"]
-    for p, label in (("", "flagship"), ("vox_", "VoxCeleb")):
-        print(f"  per {label} step: " + "; ".join(
-            f"{r['name']} x{r[p + 'launches_per_step']} {r[p + 'ms']:.4f} ms (plain "
+    for p, label in PER_CONFIG.items():
+        print(f"  per {label}: " + "; ".join(
+            f"{r['name']} x{r[launches_key(p)]} {r[p + 'ms']:.4f} ms (plain "
             f"{r[p + 'plain_ms']:.4f}, library "
             f"{'none' if r[p + 'library_ms'] is None else format(r[p + 'library_ms'], '.4f')}"
-            f", bound {r[p + 'bound_ms']:.4f}, share {r[p + 'share_of_bound']:.3f})"
+            f", bound {r[p + 'bound_ms']:.4f}, share {r[p + 'share_of_bound'] or 0.0:.3f})"
             for r in results.values()))
 
 
@@ -663,8 +751,11 @@ def check_r1(seed: int) -> None:
 class SeededEpisodes:
     """An in-memory episodic dataset of uint8 noise images drawn from a seed:
     ``n_classes`` classes of ``per_class`` images, one episode per class.
-    It offers the interface ``EpisodicBatchLoader`` reads (``__len__``,
-    ``sample_episode``, ``__getitem__``) without files or PIL."""
+    It offers the interface ``EpisodicBatchLoader`` and the eval grid read
+    (``__len__``, ``sample_episode``, ``__getitem__``, ``root``) without files
+    or PIL."""
+
+    root = "<memory>"
 
     def __init__(self, cfg, n_classes: int, per_class: int, seed: int):
         rng = np.random.default_rng(seed)
@@ -726,16 +817,23 @@ def check_launches(what: str, counters, calls: dict) -> dict:
     return got
 
 
-def run_vox(seed: int, counters) -> dict:
-    """The VoxCeleb config through the loop, sample, eval, steady steps and a resume."""
+def run_vox(seed: int, counters):
+    """The VoxCeleb config through the loop, sample, eval, steady steps and a resume.
+
+    Returns (launches of the loop, the run's directory, its config): the
+    directory, with args.json written here and the checkpoints, serves the
+    VoxCeleb eval grid (phase 9), which deletes it."""
     import dataclasses
 
     from optimalstrategiesagainstgenerativeattacks_torch.data.episodic import EpisodicBatchLoader
     from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
     from optimalstrategiesagainstgenerativeattacks_torch.train.checkpoints import get_latest_ckpt
-    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import (
+        ImageGameConfig,
+        save_args,
+    )
 
-    outdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_vox")
+    outdir = os.path.join(BUILD_DIR, "chip_smoke_vox")
     shutil.rmtree(outdir, ignore_errors=True)
     # the VoxCeleb2 paper hparams (train_gim_on_imgs.py:6-8); epochs of one
     # step, so that the checkpoint of step 2 resumes for one step
@@ -841,7 +939,251 @@ def run_vox(seed: int, counters) -> dict:
     print("  resumed step 3 (epoch 2 again): " + ", ".join(
         f"{k}={got[k]:.5f}" for k in sorted(got)))
     del resumed
+    save_args(cfg, outdir)
+    return launches, outdir, cfg
+
+
+class SeededFaces:
+    """An in-memory classification dataset of uint8 noise images drawn from a
+    seed: ``n_classes`` identities of ``per_class`` images.  It offers what
+    ``train_arcface`` reads (``__len__``, ``__getitem__`` -> (image, label),
+    ``n_classes``)."""
+
+    def __init__(self, n_classes: int, per_class: int, img_size: int, img_channels: int,
+                 seed: int):
+        rng = np.random.default_rng(seed)
+        self.n_classes, self.per_class = n_classes, per_class
+        self.images = rng.integers(0, 256, (n_classes * per_class, img_size, img_size,
+                                            img_channels), dtype=np.uint8)
+
+    def __len__(self) -> int:
+        return self.images.shape[0]
+
+    def __getitem__(self, index: int):
+        return self.images[index], index // self.per_class
+
+
+def time_train_steps(name: str, step, args, n: int, batch: int) -> None:
+    """Steps/s of a baseline's train step over ``n`` steps after one, ending when the
+    host has read the loss."""
+    step(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        metrics = step(*args)
+    loss = float(metrics["loss"])
+    step_s = (time.perf_counter() - t0) / n
+    if not math.isfinite(loss):
+        fail(f"{name}: non-finite loss")
+    print(f"  {name}: {1.0 / step_s:.3f} steps/s, {step_s * 1e3:.2f} ms/step ({n} steps after "
+          f"one, batch {batch}), loss {loss:.4f}  [{smi_line()}]")
+
+
+def check_authenticators_card_vs_cpu(agents, ds, n_episodes: int) -> None:
+    """Scores of one batch of ``ds``'s episodes, f32, TF32 off: each authenticator
+    built on the card against the same built on the CPU."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    episodes = [ds[i] for i in range(n_episodes)]
+    test, si = (np.stack([e[k] for e in episodes]).astype(np.float32) / 127.5 - 1.0
+                for k in ("real_sample", "si_sample"))
+    for name, build in agents:
+        got = build(EVAL_DEVICE).act(test_sample=test, si_sample=si)[0]
+        want = build("cpu").act(test_sample=test, si_sample=si)[0]
+        compare(f"{name} scores of {n_episodes} episodes (card vs CPU)", torch.from_numpy(got),
+                torch.from_numpy(want), SLICE_TOL, SLICE_TOL)
+
+
+def run_grid(label: str, ds, gim_dir: str, baseline_type: str, baseline_dir: str, tables,
+             counters, outdir: str) -> dict:
+    """``eval_authentication_task`` over ``ds`` in batches of EVAL_BATCH with the
+    calibration columns and the score dumps; checks the CSV, the scores and every
+    launch count, and prints each row's seconds and episodes/s.  Returns the
+    grid's launches."""
+    from optimalstrategiesagainstgenerativeattacks_torch.eval import authentication as auth
+
+    n_batches = -(-len(ds) // EVAL_BATCH)
+    per_batch = eval_launches_per_batch(*tables, baseline_type)
+    csv_path = os.path.join(outdir, f"{label}_results.csv")
+    dump_dir = os.path.join(outdir, f"{label}_scores")
+    # each row's seconds, the seconds of building its two agents (the GIM ones
+    # restore a checkpoint) and its launches: the task calls eval_game_for_pair
+    # once a row, which builds the agents, then rolls the game out
+    seen, originals, build_s = [], {}, [0.0]
+
+    def timed(name):
+        fn = originals[name] = getattr(auth, name)
+
+        def call(*args, **kw):
+            before = {c.name: c.count for c in counters}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if name == "eval_game_for_pair":
+                seen.append((seconds, build_s[0],
+                             {c.name: c.count - before[c.name] for c in counters}))
+                build_s[0] = 0.0
+            else:
+                build_s[0] += seconds
+            return out
+        return call
+
+    for c in counters:
+        c.reset()
+    for name in ("eval_game_for_pair", "get_authenticator", "get_impersonator"):
+        setattr(auth, name, timed(name))
+    t0 = time.perf_counter()
+    try:
+        rows = auth.eval_authentication_task(
+            ds=ds, m=ds.m, n=ds.n, k=ds.k, batch_size=EVAL_BATCH, num_workers=0,
+            gim_exp_dir=gim_dir, csv_file_path=csv_path, baseline_exp_dir=baseline_dir,
+            baseline_type=baseline_type, calibrate_q=0.95, dump_scores_dir=dump_dir,
+            device=EVAL_DEVICE)
+    finally:
+        for name, fn in originals.items():
+            setattr(auth, name, fn)
+    grid_s = time.perf_counter() - t0
+    launches = {c.name: c.count for c in counters}
+    copies = launches.pop("adain_nhwc_copy")
+
+    with open(csv_path, newline="") as f:
+        lines = list(csv.reader(f))
+    header = [""] + list(auth.CSV_COLS) + list(auth.CAL_COLS)
+    if lines[0] != header or len(lines) != 7 or len(rows) != 6 or len(seen) != 6:
+        fail(f"{label} grid: CSV header {lines[0]} and {len(lines) - 1} rows, "
+             f"{len(rows)} rows returned")
+    want_total = {name: 0 for name in launches}
+    for line, row, (seconds, agents_s, got) in zip(lines[1:], rows, seen):
+        au, im = row["au_type"], row["im_type"]
+        if line[1:3] != [au, im]:
+            fail(f"{label} grid: CSV row {line[:3]} for {au} vs {im}")
+        scores = np.load(os.path.join(dump_dir, f"scores_{au}_{im}.npz"))
+        for key in ("score_real", "score_fake"):
+            if scores[key].shape != (len(ds),) or not np.isfinite(scores[key]).all():
+                fail(f"{label} grid, {au} vs {im}: {key} of shape {scores[key].shape}, "
+                     f"or not finite")
+        if not (0.0 <= row["auc"] <= 1.0 and all(math.isfinite(row[c]) for c in auth.CAL_COLS)):
+            fail(f"{label} grid, {au} vs {im}: auc {row['auc']} or a calibration column")
+        want = {name: n_batches * n for name, n in per_batch[f"{au}_vs_{im}"].items()}
+        copies = got.pop("adain_nhwc_copy")
+        print(f"  {au} vs {im}: acc {row['acc']:.4f} (fake {row['acc_on_fake']:.4f}, real "
+              f"{row['acc_on_real']:.4f}), auc {row['auc']:.4f}, acc_cal {row['acc_cal']:.4f}; "
+              f"{seconds:.3f} s, {len(ds) / seconds:.1f} episodes/s; building the agents "
+              f"{agents_s:.3f} s, the rollout {len(ds) / (seconds - agents_s):.1f} episodes/s; "
+              f"launches {got} "
+              f"(expected {want}), layout copies {copies}")
+        if got != want or copies:
+            fail(f"{label} grid, {au} vs {im}: launches {got}, expected {want}, "
+                 f"{copies} layout copies")
+        for name, n in want.items():
+            want_total[name] += n
+    agents_s = sum(a for _, a, _ in seen)
+    print(f"  {label} grid: {grid_s:.3f} s for 6 rows of {len(ds)} episodes "
+          f"({n_batches} batches of {EVAL_BATCH}, the last padded), "
+          f"{6 * len(ds) / grid_s:.1f} episodes/s; building the agents {agents_s:.3f} s; "
+          f"launches {launches}  [{smi_line()}]")
+    if launches != want_total or copies:
+        fail(f"{label} grid: launches {launches}, expected {want_total}; {copies} layout copies")
+    return launches
+
+
+def run_eval_flagship(cfg, counters) -> dict:
+    """Phase 8: a 2-step checkpoint of ``cfg`` (the flagship) and a Siamese baseline,
+    then the grid."""
+    from optimalstrategiesagainstgenerativeattacks_torch.baselines import training as btrain
+    from optimalstrategiesagainstgenerativeattacks_torch.data.episodic import EpisodicBatchLoader
+    from optimalstrategiesagainstgenerativeattacks_torch.eval import authentication as auth
+    from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
+    from optimalstrategiesagainstgenerativeattacks_torch.train.checkpoints import CheckpointIO
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import save_args
+
+    outdir = os.path.join(BUILD_DIR, "chip_smoke_eval")
     shutil.rmtree(outdir, ignore_errors=True)
+    gim_dir, siam_dir = os.path.join(outdir, "gim"), os.path.join(outdir, "siamese")
+    seed = cfg.seed
+    rng = np.random.default_rng(seed + 4)
+    batches = [{key: rng.integers(0, 256, (cfg.batch_size, n, cfg.img_size, cfg.img_size,
+                                           cfg.img_channels), dtype=np.uint8)
+                for key, n in (("real_sample", cfg.n), ("leaked_sample", cfg.m),
+                               ("si_sample", cfg.k))} for _ in range(2)]
+    state, _ = timg.train_gim_imgs_steps(cfg, iter(batches), 2, device=EVAL_DEVICE)
+    save_args(cfg, gim_dir)
+    ckpt = CheckpointIO(os.path.join(gim_dir, cfg.ckpt_dir_name)).save(state, state.step)
+    del state
+    print(f"  GIM: 2 flagship steps (B={cfg.batch_size}, {cfg.compute_dtype}) -> "
+          f"{os.path.relpath(ckpt, outdir)}")
+
+    per_class = cfg.m + cfg.n + cfg.k + 1
+    siam_cfg = dict(outdir=siam_dir, img_size=cfg.img_size, img_channels=cfg.img_channels,
+                    lr=1e-3, batch_size=EVAL_BATCH, n_epochs=1, save_every=10**6, seed=seed)
+    siam_ds = SeededEpisodes(cfg, 4 * EVAL_BATCH, per_class, seed + 5)
+    t0 = time.perf_counter()
+    model, metrics = btrain.train_siamese(siam_cfg, siam_ds, progress=False, device=EVAL_DEVICE)
+    print(f"  Siamese: train_siamese, 4 batch-hard steps of {EVAL_BATCH} episodes "
+          f"({EVAL_BATCH * (cfg.m + cfg.n + cfg.k)} images): {time.perf_counter() - t0:.2f} s "
+          f"with the build and a checkpoint; loss {metrics['loss']:.4f} acc {metrics['acc']:.4f}")
+    batch = next(iter(EpisodicBatchLoader(siam_ds, EVAL_BATCH, seed=seed)))
+    pool = np.concatenate([batch[k] for k in ("real_sample", "si_sample", "leaked_sample")], 1)
+    time_train_steps("Siamese batch-hard step",
+                     btrain.make_siamese_batchhard_step(
+                         model, torch.optim.Adam(model.parameters(), lr=1e-3)), (pool,), 5,
+                     EVAL_BATCH)
+    del model
+
+    ds = SeededEpisodes(cfg, EVAL_EPISODES, per_class, seed + 6)
+    launches = run_grid("flagship", ds, gim_dir, "siamese", siam_dir,
+                        (EVAL_ADAIN_SITES, EVAL_ATTENTION_SITES), counters, outdir)
+    gim_args = dict(auth.load_args(gim_dir), compute_dtype="float32")
+    siam_ckpt, siam_args = auth.get_exp_args_from_dir(siam_dir)
+    check_authenticators_card_vs_cpu((
+        ("gim", lambda device: auth.get_gim_authenticator(ckpt, gim_args, device)),
+        ("siamese", lambda device: auth.get_siamese_authenticator(siam_ckpt, siam_args, device)),
+    ), ds, 8)
+    auth._RESTORE_CACHE.clear()
+    shutil.rmtree(outdir, ignore_errors=True)
+    return launches
+
+
+def run_eval_vox(seed: int, counters, vox_dir: str, vox_cfg) -> dict:
+    """Phase 9: ArcFace at the VoxCeleb widths, then the grid against phase 7's checkpoint."""
+    from optimalstrategiesagainstgenerativeattacks_torch.baselines import training as btrain
+    from optimalstrategiesagainstgenerativeattacks_torch.eval import authentication as auth
+
+    outdir = os.path.join(BUILD_DIR, "chip_smoke_eval")
+    shutil.rmtree(outdir, ignore_errors=True)
+    arc_dir = os.path.join(outdir, "arcface")
+    arc_cfg = dict(outdir=arc_dir, num_layers=50, dropout=0.6, img_size=vox_cfg.img_size,
+                   img_channels=vox_cfg.img_channels, emb_dim=512, th=1.5, lr=1e-3,
+                   batch_size=ARCFACE_BATCH, n_epochs=1, save_every=10**6, seed=seed)
+    # 3 steps: 3/4 of a batch of identities, 4 images each
+    faces = SeededFaces(3 * ARCFACE_BATCH // 4, 4, vox_cfg.img_size, vox_cfg.img_channels,
+                        seed + 8)
+    t0 = time.perf_counter()
+    model, metrics = btrain.train_arcface(arc_cfg, faces, progress=False, device=EVAL_DEVICE)
+    print(f"  ArcFace (ir_se, 50 layers, {vox_cfg.img_size}x{vox_cfg.img_size}x"
+          f"{vox_cfg.img_channels}, emb 512, {faces.n_classes} identities): train_arcface, "
+          f"{len(faces) // ARCFACE_BATCH} steps of {ARCFACE_BATCH}: {time.perf_counter() - t0:.2f} s with the build "
+          f"and a checkpoint; loss {metrics['loss']:.4f} acc {metrics['acc']:.4f}")
+    batch = {"image": faces.images[:ARCFACE_BATCH],
+             "label": np.arange(ARCFACE_BATCH) // faces.per_class}
+    time_train_steps("ArcFace step", btrain.make_arcface_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=1e-3)),
+        (batch, torch.Generator(device=EVAL_DEVICE).manual_seed(seed)), 3, ARCFACE_BATCH)
+    del model
+
+    per_class = vox_cfg.m + vox_cfg.n + vox_cfg.k + 1
+    ds = SeededEpisodes(vox_cfg, VOX_EVAL_EPISODES, per_class, seed + 9)
+    launches = run_grid("VoxCeleb", ds, vox_dir, "arcface", arc_dir,
+                        (VOX_EVAL_ADAIN_SITES, VOX_EVAL_ATTENTION_SITES), counters, outdir)
+    arc_ckpt, arc_args = auth.get_exp_args_from_dir(arc_dir)
+    check_authenticators_card_vs_cpu((
+        ("arcface", lambda device: auth.get_arcface_authenticator(arc_ckpt, arc_args, device)),
+    ), ds, 4)
+    auth._RESTORE_CACHE.clear()
+    for d in (outdir, vox_dir):
+        shutil.rmtree(d, ignore_errors=True)
     return launches
 
 
@@ -853,14 +1195,14 @@ def main() -> None:
     if args.steps < 2:
         fail("--steps must be at least 2 (the first step is warm-up)")
 
-    print("[1/7] card", flush=True)
+    print("[1/9] card", flush=True)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     print(f"  {smi_line()}")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    print("[2/7] build", flush=True)
+    print("[2/9] build", flush=True)
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import adain as k1
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import attention as k2
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import build
@@ -881,7 +1223,7 @@ def main() -> None:
 
     results = kernel_results()
 
-    print("[3/7] kernels vs plain versions at the flagship and VoxCeleb sites "
+    print("[3/9] kernels vs plain versions at the flagship and VoxCeleb sites, train and eval "
           f"(f32 atol/rtol {TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}; "
           "pass: max|err| <= atol + rtol*max|ref|)", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -891,17 +1233,17 @@ def main() -> None:
     torch.cuda.synchronize()
     summarise(results, times)
 
-    print(f"[4/7] slice parity: flagship widths, f32, TF32 off, B=2, fixed z "
+    print(f"[4/9] slice parity: flagship widths, f32, TF32 off, B=2, fixed z "
           f"(tol {SLICE_TOL} x max(1, max|ref|))", flush=True)
     check_slice(args.seed)
 
-    print(f"[5/7] R1 parity: VoxCeleb widths (64x64x3, style 512), f32, TF32 off, B=2 "
+    print(f"[5/9] R1 parity: VoxCeleb widths (64x64x3, style 512), f32, TF32 off, B=2 "
           f"(penalty tol {R1_TOL} x max|ref|; each gradient {R1_TOL} x its max|ref| + "
           f"{R1_TOL * 1e-3:g} x the player's)", flush=True)
     check_r1(args.seed)
 
     counters = (k1.FWD_LAUNCHES, k1.BWD_LAUNCHES, k2.FWD_LAUNCHES, k1.NHWC_COPIES)
-    print(f"[6/7] train: {args.steps} flagship steps", flush=True)
+    print(f"[6/9] train: {args.steps} flagship steps", flush=True)
     launches = run_train(args.seed, args.steps, counters)
     print(f"  layout copies in front of the AdaIN kernels: {launches.pop('adain_nhwc_copy')}")
     expected = {
@@ -915,10 +1257,25 @@ def main() -> None:
             fail(f"{name}: {launches[name]} launches, expected {want}")
         results[name]["launches"] = launches[name]
 
-    print(f"[7/7] vox: the VoxCeleb config through train_gim_imgs, then sample, eval_step, "
+    print(f"[7/9] vox: the VoxCeleb config through train_gim_imgs, then sample, eval_step, "
           f"{VOX_STEPS} steady steps and a resume", flush=True)
-    for name, n in run_vox(args.seed, counters).items():
+    vox_launches, vox_dir, vox_cfg = run_vox(args.seed, counters)
+    for name, n in vox_launches.items():
         results[name]["vox_launches"] = n
+
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+
+    print(f"[8/9] eval grid, flagship: a 2-step checkpoint, a Siamese baseline, then "
+          f"eval_authentication_task over {EVAL_EPISODES} episodes in batches of {EVAL_BATCH}",
+          flush=True)
+    for name, n in run_eval_flagship(ImageGameConfig(seed=args.seed), counters).items():
+        results[name]["eval_launches"] = n
+
+    print(f"[9/9] eval grid, VoxCeleb: ArcFace (ir_se 50) trained at 64x64x3, then "
+          f"eval_authentication_task against phase 7's checkpoint over {VOX_EVAL_EPISODES} "
+          f"episodes", flush=True)
+    for name, n in run_eval_vox(args.seed, counters, vox_dir, vox_cfg).items():
+        results[name]["vox_eval_launches"] = n
 
     print(smi_line())
     print(json.dumps({"kernels": list(results.values())}))

@@ -16,6 +16,8 @@ dataset and a seed give the same batches as the JAX loader:
     loader seeds each epoch with ``np.random.default_rng((seed, epoch))``.
   * Samples are NHWC uint8; the train step normalises them to [-1, 1] on
     the device (``train/image.py:prepare_batch``).
+  * ``ArcfaceDataSet``: single images labelled by identity, for the ArcFace
+    baseline's classification training.
   * ``EpisodicBatchLoader`` assembles whole batches, with a thread pool for
     the disk-backed dataset.
 
@@ -27,11 +29,15 @@ from __future__ import annotations
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from optimalstrategiesagainstgenerativeattacks_torch.data.utils import list_dir, list_files
+from optimalstrategiesagainstgenerativeattacks_torch.data.utils import (
+    list_dir,
+    list_files,
+    list_files_rec,
+)
 
 IMG_EXTENSIONS = (".png", ".jpg", "jpeg", ".JPG", "JPEG")
 
@@ -257,6 +263,59 @@ class OmniglotGIMDataSet:
             "class": np.int32(char_class),
             "class_name": self._characters[char_class],
         }
+
+
+class ArcfaceDataSet:
+    """Single-image classification dataset for baseline training (the
+    reference's ``ArcfaceDataSet:217-270``): one class dir per identity,
+    recursive file listing with a per-class path cache."""
+
+    def __init__(
+        self,
+        root: str,
+        split: str,
+        img_channels: int,
+        img_size: int,
+        example_cnt_per_class: int,
+        img_suffix: str = ".jpg",
+        mirror: bool = True,
+        seed: int = 0,
+    ):
+        self.root = root
+        self.split = split
+        self.img_channels = img_channels
+        self.img_mode = "L" if img_channels == 1 else "RGB"
+        self.img_size = img_size
+        self.example_cnt_per_class = example_cnt_per_class
+        self.img_suffix = img_suffix
+        self.mirror = mirror
+        self.data_dir = os.path.join(root, split)
+        self._rng = np.random.default_rng(seed)
+        self._lock = threading.Lock()
+
+        self._class_dir_names = list_dir(self.data_dir)
+        self.n_classes = len(self._class_dir_names)
+        self.class_img_paths: Dict[int, List[str]] = {}
+
+    def __len__(self) -> int:
+        return self.n_classes * self.example_cnt_per_class
+
+    def __getitem__(self, index: int) -> Tuple[np.ndarray, int]:
+        with self._lock:
+            rng = np.random.default_rng(self._rng.integers(2**63))
+        cls_idx = index // self.example_cnt_per_class
+        if cls_idx not in self.class_img_paths:
+            cls_dir_path = os.path.join(self.data_dir, self._class_dir_names[cls_idx])
+            self.class_img_paths[cls_idx] = list_files_rec(cls_dir_path, self.img_suffix)
+        paths = self.class_img_paths[cls_idx]
+        if not paths:
+            raise FileNotFoundError(
+                f"class dir {self._class_dir_names[cls_idx]!r} has no "
+                f"'{self.img_suffix}' images under {self.data_dir}"
+            )
+        img_idx = int(rng.integers(len(paths)))
+        img = load_image(paths[img_idx], self.img_size, self.img_mode, self.mirror, rng)
+        return img, cls_idx
 
 
 class EpisodicBatchLoader:

@@ -31,3 +31,14 @@ def list_files(root: str, suffix, prefix: bool = False):
         files = [os.path.join(root, f) for f in files]
     return files
 
+
+def list_files_rec(root: str, suffix):
+    """Recursive file listing by suffix."""
+    root = os.path.expanduser(root)
+    files = []
+    for curr_root, _, curr_files in os.walk(root):
+        for file_name in sorted(curr_files):
+            file_path = os.path.join(curr_root, file_name)
+            if file_name.endswith(suffix) and os.path.isfile(file_path):
+                files.append(file_path)
+    return files

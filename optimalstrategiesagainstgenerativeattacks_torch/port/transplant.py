@@ -1,16 +1,20 @@
 """Weight transplant between the JAX reference's trees and this package.
 
-The reference keeps a player as two Flax trees, ``params`` and ``spectral``
-(u/v power-iteration vectors), given here as nested dicts of numpy arrays.
-The port keeps the same tensors in one ``state_dict`` whose keys follow the
-Flax names.  The rules:
+The reference keeps a model as two Flax trees, ``params`` and a state
+collection: ``spectral`` (u/v power-iteration vectors) for the game's
+players, ``batch_stats`` (BatchNorm's running mean/var) for the baseline
+authenticators; given here as nested dicts of numpy arrays.  The port keeps
+the same tensors in one ``state_dict`` whose keys follow the Flax names.
+The rules:
 
   * conv ``kernel`` HWIO [kh, kw, in, out]  <->  ``weight`` OIHW [out, in, kh, kw];
-  * ``Dense`` ``kernel`` [in, out]           <->  ``weight`` [out, in];
+  * ``Dense`` ``kernel`` [in, out]           <->  ``weight`` [out, in] (the ArcFace
+    head's [emb, classes] kernel included);
   * ``Dense_<i>`` inside an MLP              <->  ``layers.<i>``;
-  * InstanceNorm ``scale``                   <->  ``weight``;
-  * ``bias``, ``gamma`` and the spectral ``u`` / ``v`` keep their names (u, v
-    are buffers on the port's side);
+  * InstanceNorm and BatchNorm ``scale``     <->  ``weight``;
+  * BatchNorm ``mean`` / ``var``             <->  ``running_mean`` / ``running_var``;
+  * ``bias``, ``gamma``, the PReLU ``alpha`` and the spectral ``u`` / ``v`` keep
+    their names (u, v are buffers on the port's side);
   * ``encoders/enc/*`` stacked on axis 0     <->  ``encoders.src.*`` (index 0)
     and ``encoders.env.*`` (index 1);
   * ``.../res_scan/block/*`` stacked on axis 0 <-> ``.../res_0.*`` .. ``res_<n-1>.*``.
@@ -31,6 +35,8 @@ import torch
 _PAIR = ("src", "env")
 _DENSE = re.compile(r"Dense_(\d+)$")
 _RES = re.compile(r"res_(\d+)$")
+_BN_STATS = ("mean", "var")
+_STATE_LEAVES = ("u", "v") + _BN_STATS  # leaves of the state collection
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -63,21 +69,24 @@ def _emit(path: Tuple[str, ...], arr: np.ndarray, out: Dict[str, np.ndarray]) ->
         arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
     elif leaf == "scale":
         leaf = "weight"
+    elif leaf in _BN_STATS:
+        leaf = "running_" + leaf
     out[".".join(mods + [leaf])] = np.ascontiguousarray(arr, dtype=np.float32)
 
 
-def flax_to_state_dict(params: Mapping, spectral: Mapping) -> Dict[str, np.ndarray]:
-    """Flax ``params`` + ``spectral`` trees -> the port's state_dict (numpy values)."""
+def flax_to_state_dict(params: Mapping, state: Mapping) -> Dict[str, np.ndarray]:
+    """Flax ``params`` + state (``spectral`` or ``batch_stats``) trees -> the port's
+    state_dict (numpy values)."""
     out: Dict[str, np.ndarray] = {}
-    for tree in (params, spectral):
+    for tree in (params, state):
         for path, arr in _flatten(tree):
             _emit(path, arr, out)
     return out
 
 
-def load_flax(module: torch.nn.Module, params: Mapping, spectral: Mapping) -> None:
+def load_flax(module: torch.nn.Module, params: Mapping, state: Mapping) -> None:
     """Copy the reference's trees into ``module`` (strict: every key must match)."""
-    sd = {k: torch.tensor(v) for k, v in flax_to_state_dict(params, spectral).items()}
+    sd = {k: torch.tensor(v) for k, v in flax_to_state_dict(params, state).items()}
     module.load_state_dict(sd, strict=True)
 
 
@@ -88,8 +97,8 @@ def _set(tree: dict, path: Tuple[str, ...], value) -> None:
 
 
 def state_dict_to_flax(state_dict: Mapping) -> Tuple[dict, dict]:
-    """The port's state_dict -> (params, spectral) nested dicts of numpy arrays,
-    in the reference's default (stacked) layout."""
+    """The port's state_dict -> (params, state) nested dicts of numpy arrays, in the
+    reference's default (stacked) layout; state is ``spectral`` or ``batch_stats``."""
     stacks: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
     plain: Dict[Tuple[str, ...], np.ndarray] = {}
     for key, value in state_dict.items():
@@ -103,6 +112,8 @@ def state_dict_to_flax(state_dict: Mapping) -> Tuple[dict, dict]:
                 leaf, arr = "kernel", arr.T
             else:
                 leaf = "scale"
+        elif leaf in ("running_mean", "running_var"):
+            leaf = leaf[len("running_"):]
         path, index, i = [], None, 0
         mods = parts[:-1]
         while i < len(mods):
@@ -127,10 +138,10 @@ def state_dict_to_flax(state_dict: Mapping) -> Tuple[dict, dict]:
         else:
             stacks.setdefault(full, {})[index] = arr
     params: dict = {}
-    spectral: dict = {}
+    state: dict = {}
     items = list(plain.items()) + [
         (p, np.stack([d[i] for i in sorted(d)])) for p, d in stacks.items()
     ]
     for path, arr in items:
-        _set(spectral if path[-1] in ("u", "v") else params, path, arr)
-    return params, spectral
+        _set(state if path[-1] in _STATE_LEAVES else params, path, arr)
+    return params, state

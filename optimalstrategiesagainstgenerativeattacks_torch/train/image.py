@@ -132,10 +132,10 @@ def create_state(cfg: ImageGameConfig, au, im, seed: int, device) -> GameState:
     return GameState(cfg, au, im, opt_au, opt_im, sched_au, sched_im, noise_gen)
 
 
-def prepare(cfg: ImageGameConfig, x, device) -> torch.Tensor:
-    """uint8 images -> [-1, 1] in the compute dtype on ``device``."""
+def prepare(cfg: Optional[ImageGameConfig], x, device) -> torch.Tensor:
+    """uint8 images -> [-1, 1] in the compute dtype on ``device`` (f32 without a cfg)."""
     x = torch.as_tensor(x, device=device)
-    return (x.float() / 127.5 - 1.0).to(compute_dtype(cfg) or torch.float32)
+    return (x.float() / 127.5 - 1.0).to((cfg and compute_dtype(cfg)) or torch.float32)
 
 
 def prepare_batch(cfg: ImageGameConfig, batch, device):

@@ -24,10 +24,13 @@ from typing import List, Optional
 
 
 def save_args(args, outdir: str) -> str:
-    """Snapshot a config (a dataclass or an argparse namespace) to args.json."""
+    """Snapshot a config (a dataclass, a dict or an argparse namespace) to args.json."""
     os.makedirs(outdir, exist_ok=True)
     json_path = os.path.join(outdir, "args.json")
-    payload = dataclasses.asdict(args) if dataclasses.is_dataclass(args) else vars(args)
+    if dataclasses.is_dataclass(args):
+        payload = dataclasses.asdict(args)
+    else:
+        payload = args if isinstance(args, dict) else vars(args)
     with open(json_path, "w") as f:
         json.dump(payload, f, indent=2, sort_keys=True)
     return json_path

@@ -100,7 +100,8 @@ def uint8_batch(cfg: ImageGameConfig, seed: int):
 
 def test_package_source_imports_no_jax():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|optax|optimalstrategiesagainstgenerativeattacks_tpu)\b")
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|sklearn|pandas"
+        r"|optimalstrategiesagainstgenerativeattacks_tpu)\b")
     offenders = [f"{p.relative_to(REPO)}:{i}" for p in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]
                  for i, line in enumerate(p.read_text().splitlines(), 1) if pattern.match(line)]
     assert offenders == []
@@ -117,7 +118,7 @@ def test_config_defaults_match_the_reference():
 def test_port_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'sklearn', 'pandas',\n"
         "             'optimalstrategiesagainstgenerativeattacks_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.train.image as t\n"
@@ -129,6 +130,19 @@ def test_port_imports_with_jax_blocked():
         "import optimalstrategiesagainstgenerativeattacks_torch.data.utils\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.utils.config\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.train_gim_on_imgs\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.eval.scorer\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.eval.agents\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.eval.authentication\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.baselines.layers\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.baselines.siamese\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.baselines.arcface\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.baselines.training as b\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.eval_gim_on_authentication\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.train_siamese_baseline\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.train_arcface_baseline\n"
+        "from optimalstrategiesagainstgenerativeattacks_torch.eval.scorer import roc_auc\n"
+        "assert roc_auc([1, 0, 1], [0.3, 0.1, 0.3]) == 1.0\n"
+        "b.build_siamese(1, 16)\n"
         "au, im = t.build_models(t.ImageGameConfig(img_size=16, style_dim=32))\n"
         "print('ok')\n"
     )
