@@ -50,7 +50,19 @@ Phases (each prints its lines; the first failure exits non-zero):
   9. vox eval: ArcFace (ir_se, 50 layers, 64x64x3, emb 512) trained for 3
               steps of 128 (then its steps/s), and the grid with the ArcFace
               baseline against phase 7's checkpoint over 160 episodes, with
-              the same checks; the ArcFace scores card against CPU.
+              the same checks; the ArcFace scores card against CPU;
+ 10. gaussian: the Gaussian game at the README's Nash-check config (d=10,
+              m1 n5 k10, head x8, B=4096): one f32 step card against CPU at
+              reg_param 0 and 5 (metrics and parameters after Adam), then
+              ``train_gim_gaussian`` for 3000 steps with checkpoints inside,
+              a resume from one, and timed chunks of 100 steps (steps/s,
+              episodes/s); prints the final au_acc beside the closed-form
+              Nash value; no kernel may launch;
+ 11. img_att: the flagship impersonator with ``use_img_att`` in f32, card
+              against CPU, then bf16 flagship train steps with it: finite
+              metrics and fakes (img_att's blend is not tanh-bounded, in the
+              reference neither: its range is printed), phase 6's launch
+              counts, and its steps/s beside phase 6's.
 The second-to-last line is a JSON summary of the kernels, with times per
 flagship step, per VoxCeleb step and per gim-vs-gim eval batch of each
 config (sum over sites of ms x launches), and the launches of each run;
@@ -168,6 +180,18 @@ SLICE_TOL = 1e-3  # f32 forward, card vs CPU, TF32 off: |err| <= tol * max(1, ma
 # f32 R1 penalty and authenticator gradients, card vs CPU, TF32 off: per tensor
 # |err| <= R1_TOL * max|ref| of the tensor + R1_TOL * 1e-3 * max|ref| of the player
 R1_TOL = 1e-3
+
+# the Gaussian game at the README's Nash-check config (d=10, m1 n5 k10, head x8, B=4096)
+GAUSS_CONFIG = dict(src_dim=10, m=1, n=5, k=10, au_hidden_scale=8, batch_size=4096,
+                    log_every=100)
+GAUSS_STEPS, GAUSS_SAVE_EVERY = 3000, 1000  # the loop's steps; a checkpoint each 1000
+GAUSS_TIMED_CHUNKS = 10  # chunks of log_every steps timed after the loop
+# f32 Gaussian step, card vs CPU, TF32 off: each metric |err| <= GAUSS_TOL * max(1, |ref|),
+# the accuracies within 2 / B (a logit within rounding of 0 may take the other side);
+# each parameter |err| <= GAUSS_TOL * max|ref| of its tensor where its gradient is above
+# 1e-6 of the player's largest, else within 2 lr (Adam's first step is lr g / (|g| + eps))
+GAUSS_TOL = 1e-4
+N_PHASES = 11
 
 # NVIDIA H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -554,13 +578,13 @@ def randomise_norms_and_gammas(module: torch.nn.Module, gen: torch.Generator) ->
             m.gamma.copy_(0.5 * torch.randn(m.gamma.shape, generator=gen))
 
 
-def check_slice(seed: int) -> None:
+def check_slice(seed: int, use_img_att: bool = False) -> None:
     from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
     from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = ImageGameConfig(compute_dtype="float32", batch_size=2)
+    cfg = ImageGameConfig(compute_dtype="float32", batch_size=2, use_img_att=use_img_att)
     au, im = timg.build_models(cfg)
     state = timg.create_state(cfg, au, im, seed, "cpu")
     gen = torch.Generator().manual_seed(seed + 1)
@@ -582,17 +606,23 @@ def check_slice(seed: int) -> None:
     print(f"  fake {tuple(fake_gpu.shape)}, logits {logit_gpu.flatten().tolist()}")
     compare("im fake (card vs CPU)", fake_gpu, fake_cpu, SLICE_TOL, SLICE_TOL)
     compare("au logits (card vs CPU)", logit_gpu, logit_cpu, SLICE_TOL, SLICE_TOL)
-    if fake_gpu.abs().max() > 1.0:
+    # img2img ends in tanh; img_att blends that with an unbounded SN conv block of it
+    # (v2), as the reference does, so only the fake without img_att lies in [-1, 1]
+    print(f"  fake range [{fake_gpu.min().item():.4f}, {fake_gpu.max().item():.4f}]")
+    if not use_img_att and fake_gpu.abs().max() > 1.0:
         fail("fake images outside [-1, 1]")
 
 
-def run_train(seed: int, n_steps: int, counters) -> dict:
+def run_train(seed: int, n_steps: int, counters, use_img_att: bool = False) -> tuple:
+    """Flagship train steps through ``train_gim_imgs_steps``; returns (launches,
+    seconds a steady step)."""
     from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
     from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
 
-    cfg = ImageGameConfig(seed=seed)  # the flagship defaults
+    cfg = ImageGameConfig(seed=seed, use_img_att=use_img_att)  # the flagship defaults
     print(f"  config: B={cfg.batch_size} img={cfg.img_size}x{cfg.img_size}x{cfg.img_channels} "
-          f"style={cfg.style_dim} m={cfg.m} n={cfg.n} k={cfg.k} {cfg.compute_dtype}")
+          f"style={cfg.style_dim} m={cfg.m} n={cfg.n} k={cfg.k} {cfg.compute_dtype} "
+          f"use_img_att={cfg.use_img_att}")
     rng = np.random.default_rng(seed)
     batches = [
         {key: torch.from_numpy(rng.integers(
@@ -630,15 +660,32 @@ def run_train(seed: int, n_steps: int, counters) -> dict:
         logits = state.au(fake, si)
     if tuple(fake.shape) != (cfg.batch_size, cfg.n, cfg.img_size, cfg.img_size, cfg.img_channels):
         fail(f"fake shape {tuple(fake.shape)}")
-    if not (torch.isfinite(fake).all() and fake.abs().max() <= 1.0 and torch.isfinite(logits).all()):
+    bounded = use_img_att or fake.abs().max() <= 1.0  # img_att's blend is not tanh-bounded
+    if not (torch.isfinite(fake).all() and bounded and torch.isfinite(logits).all()):
         fail("trained players give non-finite or out-of-range outputs")
+    print(f"  trained players: fake range [{fake.min().item():.4f}, {fake.max().item():.4f}], "
+          f"logits finite")
     images = cfg.batch_size * (cfg.m + cfg.n + cfg.k)
     print(f"  warm-up step (state build, kernel compiles, cuDNN autotune): {warm_s:.2f} s")
     print(f"  steady steps 1..{n_steps - 1}: {1.0 / step_s:.3f} steps/s, "
           f"{images / step_s:.1f} images/s ({images} batch images per step), "
           f"{step_s * 1e3:.2f} ms/step, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{smi_line()}]")
-    return launches
+    return launches, step_s
+
+
+def check_train_launches(what: str, launches: dict, n_steps: int) -> None:
+    """Fail unless ``n_steps`` flagship steps launched each kernel its per-step count."""
+    print(f"  layout copies in front of the AdaIN kernels: {launches.pop('adain_nhwc_copy')}")
+    expected = {
+        "adain_fwd": sum(ADAIN_SITES.values()) * n_steps,
+        "adain_bwd": sum(ADAIN_SITES.values()) * n_steps,
+        "attention_core_fwd": sum(ATTENTION_SITES.values()) * n_steps,
+    }
+    print(f"  {what}: launches {launches}, expected {expected}")
+    for name, want in expected.items():
+        if launches[name] != want:
+            fail(f"{what}: {name} {launches[name]} launches, expected {want}")
 
 
 def kernel_results() -> dict:
@@ -653,6 +700,7 @@ def kernel_results() -> dict:
     return {
         name: {"name": name, "route": route, "source": src, "replaces": rep,
                "launches": 0, "vox_launches": 0, "eval_launches": 0, "vox_eval_launches": 0,
+               "gaussian_launches": 0, "img_att_launches": 0,
                **{f"{p}launches_per_batch_by_pairing": {pair: n[name] for pair, n in table.items()}
                   for p, table in pairings.items()},
                "max_abs_err": 0.0,
@@ -943,6 +991,122 @@ def run_vox(seed: int, counters):
     return launches, outdir, cfg
 
 
+def check_gaussian_step(seed: int) -> None:
+    """One f32 Gaussian step at the Nash-check config, card against CPU, reg 0 and 5:
+    the same weights (both from the seed), batch and z."""
+    from optimalstrategiesagainstgenerativeattacks_torch.train import gaussian as tg
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import GaussianGameConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for reg in (0.0, 5.0):
+        cfg = GaussianGameConfig(**GAUSS_CONFIG, reg_param=reg, seed=seed)
+        gen = torch.Generator().manual_seed(seed + 10)
+        batch = tg.synth_batch(cfg, gen, "cpu")
+        z = torch.randn((cfg.batch_size, cfg.n, cfg.src_dim), generator=gen)
+        devices = {"card": "cuda", "host": "cpu"}
+        states = {side: tg.create_state(cfg, d) for side, d in devices.items()}
+        got = {side: {k: float(v) for k, v in tg.train_step(
+                   states[side], {k: v.to(d) for k, v in batch.items()}, z.to(d)).items()}
+               for side, d in devices.items()}
+        worst = []
+        for k, ref in got["host"].items():
+            err = abs(got["card"][k] - ref)
+            limit = 2.0 / cfg.batch_size if "acc" in k else GAUSS_TOL * max(1.0, abs(ref))
+            if not math.isfinite(got["card"][k]) or err > limit:
+                fail(f"gaussian step, reg {reg}: {k} card {got['card'][k]} CPU {ref}")
+            worst.append((err / limit, k))
+        print(f"  reg {reg}: au_reg card {got['card']['au_reg']:.6f} CPU "
+              f"{got['host']['au_reg']:.6f}, au_loss {got['card']['au_loss']:.6f}; "
+              f"15 metrics, worst error / limit {max(worst)[0]:.3f} ({max(worst)[1]})")
+        for player, lr in (("au", cfg.au_lr), ("im", cfg.im_lr)):
+            params = {side: dict(getattr(st, player).named_parameters())
+                      for side, st in states.items()}
+            opt = getattr(states["host"], f"opt_{player}")
+            grads = {k: opt.state[p]["exp_avg"] for k, p in params["host"].items()}
+            floor = 1e-6 * max(g.abs().max().item() for g in grads.values())
+            ratios = []
+            for k, want in params["host"].items():
+                err = (params["card"][k].detach().cpu() - want.detach()).abs()
+                big = grads[k].abs() > floor
+                limit = GAUSS_TOL * want.abs().max().item()
+                if not (bool((err[big] <= limit).all()) and bool((err[~big] <= 2 * lr).all())):
+                    fail(f"gaussian step, reg {reg}: {player} {k} off by {err.max().item():.3e}")
+                ratios.append((err[big].max().item() / limit if big.any() else 0.0, k))
+            print(f"    {player}: {len(ratios)} parameters after Adam, worst error / limit "
+                  f"{max(ratios)[0]:.3f} ({max(ratios)[1]})")
+
+
+def run_gaussian(seed: int, counters) -> dict:
+    """The Gaussian loop through ``train_gim_gaussian`` at the Nash-check config, a
+    resume from its checkpoint inside the run, then timed chunks; returns the
+    kernels' launches over all three (the game has no kernel: 0 expected)."""
+    import dataclasses
+
+    from optimalstrategiesagainstgenerativeattacks_torch.theory import game_value_mnk
+    from optimalstrategiesagainstgenerativeattacks_torch.train import gaussian as tg
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import GaussianGameConfig
+
+    outdir = os.path.join(BUILD_DIR, "chip_smoke_gaussian")
+    shutil.rmtree(outdir, ignore_errors=True)
+    cfg = GaussianGameConfig(**GAUSS_CONFIG, n_iters=GAUSS_STEPS, save_every=GAUSS_SAVE_EVERY,
+                             seed=seed, outdir=outdir)
+    print(f"  config: d={cfg.src_dim} m={cfg.m} n={cfg.n} k={cfg.k} B={cfg.batch_size} "
+          f"au_stat={cfg.au_stat} au_hidden_scale={cfg.au_hidden_scale} reg={cfg.reg_param} "
+          f"lr {cfg.au_lr}/{cfg.im_lr} log_every={cfg.log_every}")
+    for c in counters:
+        c.reset()
+    torch.cuda.synchronize()
+    logger = MemoryLogger()
+    t0 = time.perf_counter()
+    state = tg.train_gim_gaussian(cfg, logger=logger, progress=False, device="cuda")
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    ckpts = sorted(os.listdir(os.path.join(outdir, "ckpts")))
+    want_ckpts = [f"model_{s:08d}" for s in range(GAUSS_SAVE_EVERY - 1, GAUSS_STEPS,
+                                                   GAUSS_SAVE_EVERY)]
+    if state.step != GAUSS_STEPS - 1 or ckpts != want_ckpts:
+        fail(f"gaussian loop: state.step {state.step}, checkpoints {ckpts}")
+    acc = logger.stats["train_accuracy"]["au_acc"]
+    if len(acc) != GAUSS_STEPS or not all(math.isfinite(v) for cat in logger.stats.values()
+                                          for pts in cat.values() for _, v in pts):
+        fail(f"gaussian loop: {len(acc)} steps logged, or non-finite scalars")
+    last = [v for _, v in acc[-cfg.log_every:]]
+    print(f"  loop: {GAUSS_STEPS} steps in {loop_s:.2f} s ({GAUSS_STEPS / loop_s:.1f} steps/s "
+          f"with the state build, the host's logging and {len(ckpts)} checkpoints); "
+          f"checkpoints {ckpts}")
+    print(f"  au_acc over the last {cfg.log_every} steps {statistics.mean(last):.4f} (step "
+          f"{acc[-1][0]}: {acc[-1][1]:.4f}); closed-form Nash value game_value_mnk(1, 5, 10, 10) "
+          f"= {game_value_mnk(m=1, n=5, d=10, k=10):.4f} (a record: the game plateaus after "
+          f"~1e5 steps)")
+
+    resume_at = GAUSS_STEPS - GAUSS_SAVE_EVERY - 1
+    resumed = tg.train_gim_gaussian(
+        dataclasses.replace(cfg, resume_from_ckpt=os.path.join("ckpts", f"model_{resume_at:08d}")),
+        logger=MemoryLogger(), progress=False, device="cuda")
+    if resumed.step != state.step:
+        fail(f"gaussian resume: state.step {resumed.step}")
+    diff = max((a - b).abs().max().item()
+               for player in ("au", "im")
+               for a, b in zip(getattr(resumed, player).parameters(),
+                               getattr(state, player).parameters()))
+    print(f"  resume from model_{resume_at:08d}: {resumed.step - resume_at} steps to step "
+          f"{resumed.step}; largest parameter difference from the uninterrupted run {diff:.3e}")
+    if not math.isfinite(diff):
+        fail("gaussian resume: non-finite parameters")
+
+    tg.train_chunk(state, cfg.log_every).cpu()  # warm
+    t0 = time.perf_counter()
+    for _ in range(GAUSS_TIMED_CHUNKS):
+        tg.train_chunk(state, cfg.log_every).cpu()  # the loop's one read a chunk
+    step_s = (time.perf_counter() - t0) / (GAUSS_TIMED_CHUNKS * cfg.log_every)
+    print(f"  steady: {1.0 / step_s:.1f} steps/s, {cfg.batch_size / step_s:.0f} episodes/s "
+          f"({GAUSS_TIMED_CHUNKS} chunks of {cfg.log_every} steps, each ending in the host's "
+          f"read of its metrics), {step_s * 1e3:.3f} ms/step  [{smi_line()}]")
+    shutil.rmtree(outdir, ignore_errors=True)
+    return {c.name: c.count for c in counters}
+
+
 class SeededFaces:
     """An in-memory classification dataset of uint8 noise images drawn from a
     seed: ``n_classes`` identities of ``per_class`` images.  It offers what
@@ -1195,14 +1359,14 @@ def main() -> None:
     if args.steps < 2:
         fail("--steps must be at least 2 (the first step is warm-up)")
 
-    print("[1/9] card", flush=True)
+    print(f"[1/{N_PHASES}] card", flush=True)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     print(f"  {smi_line()}")
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    print("[2/9] build", flush=True)
+    print(f"[2/{N_PHASES}] build", flush=True)
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import adain as k1
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import attention as k2
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import build
@@ -1223,8 +1387,8 @@ def main() -> None:
 
     results = kernel_results()
 
-    print("[3/9] kernels vs plain versions at the flagship and VoxCeleb sites, train and eval "
-          f"(f32 atol/rtol {TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}; "
+    print(f"[3/{N_PHASES}] kernels vs plain versions at the flagship and VoxCeleb sites, train "
+          f"and eval (f32 atol/rtol {TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}; "
           "pass: max|err| <= atol + rtol*max|ref|)", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = DeviceTimer()
@@ -1233,49 +1397,66 @@ def main() -> None:
     torch.cuda.synchronize()
     summarise(results, times)
 
-    print(f"[4/9] slice parity: flagship widths, f32, TF32 off, B=2, fixed z "
+    print(f"[4/{N_PHASES}] slice parity: flagship widths, f32, TF32 off, B=2, fixed z "
           f"(tol {SLICE_TOL} x max(1, max|ref|))", flush=True)
     check_slice(args.seed)
 
-    print(f"[5/9] R1 parity: VoxCeleb widths (64x64x3, style 512), f32, TF32 off, B=2 "
+    print(f"[5/{N_PHASES}] R1 parity: VoxCeleb widths (64x64x3, style 512), f32, TF32 off, B=2 "
           f"(penalty tol {R1_TOL} x max|ref|; each gradient {R1_TOL} x its max|ref| + "
           f"{R1_TOL * 1e-3:g} x the player's)", flush=True)
     check_r1(args.seed)
 
     counters = (k1.FWD_LAUNCHES, k1.BWD_LAUNCHES, k2.FWD_LAUNCHES, k1.NHWC_COPIES)
-    print(f"[6/9] train: {args.steps} flagship steps", flush=True)
-    launches = run_train(args.seed, args.steps, counters)
-    print(f"  layout copies in front of the AdaIN kernels: {launches.pop('adain_nhwc_copy')}")
-    expected = {
-        "adain_fwd": sum(ADAIN_SITES.values()) * args.steps,
-        "adain_bwd": sum(ADAIN_SITES.values()) * args.steps,
-        "attention_core_fwd": sum(ATTENTION_SITES.values()) * args.steps,
-    }
-    print(f"  launches {launches}, expected {expected}")
-    for name, want in expected.items():
-        if launches[name] != want:
-            fail(f"{name}: {launches[name]} launches, expected {want}")
-        results[name]["launches"] = launches[name]
+    print(f"[6/{N_PHASES}] train: {args.steps} flagship steps", flush=True)
+    launches, flagship_step_s = run_train(args.seed, args.steps, counters)
+    check_train_launches("train", launches, args.steps)
+    for name, n in launches.items():
+        results[name]["launches"] = n
 
-    print(f"[7/9] vox: the VoxCeleb config through train_gim_imgs, then sample, eval_step, "
-          f"{VOX_STEPS} steady steps and a resume", flush=True)
+    print(f"[7/{N_PHASES}] vox: the VoxCeleb config through train_gim_imgs, then sample, "
+          f"eval_step, {VOX_STEPS} steady steps and a resume", flush=True)
     vox_launches, vox_dir, vox_cfg = run_vox(args.seed, counters)
     for name, n in vox_launches.items():
         results[name]["vox_launches"] = n
 
     from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
 
-    print(f"[8/9] eval grid, flagship: a 2-step checkpoint, a Siamese baseline, then "
+    print(f"[8/{N_PHASES}] eval grid, flagship: a 2-step checkpoint, a Siamese baseline, then "
           f"eval_authentication_task over {EVAL_EPISODES} episodes in batches of {EVAL_BATCH}",
           flush=True)
     for name, n in run_eval_flagship(ImageGameConfig(seed=args.seed), counters).items():
         results[name]["eval_launches"] = n
 
-    print(f"[9/9] eval grid, VoxCeleb: ArcFace (ir_se 50) trained at 64x64x3, then "
+    print(f"[9/{N_PHASES}] eval grid, VoxCeleb: ArcFace (ir_se 50) trained at 64x64x3, then "
           f"eval_authentication_task against phase 7's checkpoint over {VOX_EVAL_EPISODES} "
           f"episodes", flush=True)
     for name, n in run_eval_vox(args.seed, counters, vox_dir, vox_cfg).items():
         results[name]["vox_eval_launches"] = n
+
+    print(f"[10/{N_PHASES}] gaussian: one f32 step card vs CPU (TF32 off, reg 0 and 5; metrics "
+          f"{GAUSS_TOL} x max(1, |ref|), accuracies 2/B; parameters {GAUSS_TOL} x max|ref|, "
+          f"2 lr where the gradient is rounding noise), then train_gim_gaussian for "
+          f"{GAUSS_STEPS} steps, a resume and timed chunks", flush=True)
+    check_gaussian_step(args.seed)
+    launches = run_gaussian(args.seed, counters)
+    copies = launches.pop("adain_nhwc_copy")
+    print(f"  launches {launches} (expected none), layout copies {copies}")
+    if any(launches.values()) or copies:
+        fail(f"gaussian: kernels launched {launches}")
+    for name, n in launches.items():
+        results[name]["gaussian_launches"] = n
+
+    print(f"[11/{N_PHASES}] use_img_att: the flagship impersonator with img_att, f32 card vs CPU "
+          f"(tol {SLICE_TOL} x max(1, max|ref|)), then {args.steps} bf16 flagship steps",
+          flush=True)
+    check_slice(args.seed, use_img_att=True)
+    launches, img_att_step_s = run_train(args.seed, args.steps, counters, use_img_att=True)
+    check_train_launches("train with img_att", launches, args.steps)
+    for name, n in launches.items():
+        results[name]["img_att_launches"] = n
+    print(f"  steady steps/s: with img_att {1.0 / img_att_step_s:.3f}, without (phase 6, this "
+          f"call) {1.0 / flagship_step_s:.3f}; img_att adds "
+          f"{(img_att_step_s - flagship_step_s) * 1e3:.2f} ms/step  [{smi_line()}]")
 
     print(smi_line())
     print(json.dumps({"kernels": list(results.values())}))

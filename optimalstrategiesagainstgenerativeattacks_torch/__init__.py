@@ -8,12 +8,13 @@ a counterpart by name:
                  set statistics, spectral power iteration);
   * ``nn/``      ``nn.Module`` blocks (spectral-norm convs, residual blocks,
                  self-attention, set-statistic heads);
-  * ``models/``  the image game's authenticator and impersonator;
-  * ``train/``   losses, the game state and the train step;
+  * ``models/``  each game's authenticator and impersonator (image, Gaussian);
+  * ``train/``   losses, the game states, the train steps and loops;
+  * ``theory/``  the closed-form game values;
   * ``kernels/`` the hand-written Hopper kernels (Triton AdaIN, CUDA
                  attention core), their plain PyTorch versions and the build;
   * ``port/``    the weight transplant from the JAX parameter trees;
-  * ``utils/``   the image game's config.
+  * ``utils/``   the games' configs.
 
 Tensors at the public functions keep the JAX layout (``[B, S, H, W, C]``);
 inside, modules run NCHW tensors in ``torch.channels_last`` memory.  The

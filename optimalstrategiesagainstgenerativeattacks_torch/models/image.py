@@ -24,6 +24,7 @@ from optimalstrategiesagainstgenerativeattacks_torch.nn.blocks import (
     MLP,
     AdaResBlock2,
     AdaResBlockUp2,
+    ImgAttention,
     InstanceNorm,
     ResBlockDown,
     ResBlockUp,
@@ -248,17 +249,25 @@ class GIMFaceImpersonator(nn.Module):
       1. src/env = mean over m of the src/env encoders of the leaked images;
       2. w = env_noise_mapper(z), z ~ N(0, I) (or given), mean-centred over n;
       3. env_img = env_decoder(env + w), channel-concat with the first leaked image;
-      4. fake = img2img(env_img, style=src)  -> [B, n, H, W, C].
+      4. fake = img2img(env_img, style=src)  -> [B, n, H, W, C];
+      5. with ``use_img_att``, fake = img_att(first leaked image, fake).
+
+    ``img_att`` exists only with ``use_img_att`` (the JAX impersonator owns no
+    such parameters otherwise).
     """
 
     def __init__(self, encoders: EncoderPair, env_decoder: EnvDecoder,
                  img2img: AdaInImage2Image, env_noise_mapper: MLP, style_dim: int,
-                 img_channels: int, dtype: Optional[torch.dtype] = None):
+                 img_channels: int, use_img_att: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.encoders = encoders
         self.env_decoder = env_decoder
         self.img2img = img2img
         self.env_noise_mapper = env_noise_mapper
+        if use_img_att:
+            self.img_att = ImgAttention(img_channels, dtype=dtype)
+        self.use_img_att = use_img_att
         self.style_dim = style_dim
         self.img_channels = img_channels
         self.dtype = dtype
@@ -283,13 +292,18 @@ class GIMFaceImpersonator(nn.Module):
         noisy_env = env[:, None, :] + noise  # [B, n, style]
 
         env_img = self.env_decoder(noisy_env.reshape(b * n, self.style_dim))
-        x = torch.cat([env_img, to_nchw(expanded.reshape(b * n, h, w, c))], dim=1)
+        leaked_img = to_nchw(expanded.reshape(b * n, h, w, c))
+        x = torch.cat([env_img, leaked_img], dim=1)
         style = src[:, None, :].expand(b, n, self.style_dim).reshape(b * n, self.style_dim)
-        fake = to_nhwc(self.img2img(x, style))
+        fake = self.img2img(x, style)
+        if self.use_img_att:
+            fake = self.img_att(leaked_img, fake)
+        fake = to_nhwc(fake)
         return fake.reshape(b, n, *fake.shape[1:])
 
 
-def get_im(img_size: int, img_channels: int, style_dim: int, num_env_noise_layers: int = 4,
+def get_im(img_size: int, img_channels: int, style_dim: int, use_img_att: bool = False,
+           num_env_noise_layers: int = 4,
            dtype: Optional[torch.dtype] = None) -> GIMFaceImpersonator:
     """The image impersonator (``get_im`` of the reference)."""
     encoders = EncoderPair(img_size=img_size, img_channels=img_channels, style_dim=style_dim,
@@ -299,7 +313,7 @@ def get_im(img_size: int, img_channels: int, style_dim: int, num_env_noise_layer
                                dtype=dtype)
     mapper = MLP([style_dim] * (num_env_noise_layers + 1), dtype=dtype)
     return GIMFaceImpersonator(encoders, decoder, img2img, mapper, style_dim, img_channels,
-                               dtype=dtype)
+                               use_img_att=use_img_att, dtype=dtype)
 
 
 def get_au(img_size: int, img_channels: int, style_dim: int,

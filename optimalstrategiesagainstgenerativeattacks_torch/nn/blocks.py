@@ -263,3 +263,45 @@ class AdaResBlockUp2(nn.Module):
         out = leaky_relu(ada_in(out, self.lin2_mean(style), self.lin2_std(style)))
         return self.conv_r2(out) + res
 
+
+
+class ImgAttConvBlock(nn.Module):
+    """SN residual conv block: res = 1x1 conv of x; out = lrelu, 9x9 conv (pad 4),
+    lrelu, 3x3 conv; returns res + out."""
+
+    def __init__(self, in_channels: int, out_channels: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv_l1 = SNConv(in_channels, out_channels, 1, padding=0, dtype=dtype)
+        self.conv_r1 = SNConv(in_channels, out_channels, 9, padding=4, dtype=dtype)
+        self.conv_r2 = SNConv(out_channels, out_channels, 3, padding=1, dtype=dtype)
+
+    def forward(self, x):
+        out = self.conv_r2(leaky_relu(self.conv_r1(leaky_relu(x))))
+        return self.conv_l1(x) + out
+
+
+class ImgAttention(nn.Module):
+    """Per-pixel two-way softmax blend of two NCHW images of ``img1_channels`` each.
+
+    Scores q1.k1 and q2.k2 over channels (q from both images, k1 from x1,
+    k2 and the value v2 from x2); the softmax over the two scores runs in f32
+    and is cast back to x1's dtype; returns x1 a0 + v2 a1.  Stock torch ops:
+    the JAX package wrote no kernel for it either.
+    """
+
+    def __init__(self, img1_channels: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        c = img1_channels
+        self.q1conv = ImgAttConvBlock(2 * c, c, dtype=dtype)
+        self.q2conv = ImgAttConvBlock(2 * c, c, dtype=dtype)
+        self.k1conv = ImgAttConvBlock(c, c, dtype=dtype)
+        self.k2conv = ImgAttConvBlock(c, c, dtype=dtype)
+        self.v2conv = ImgAttConvBlock(c, c, dtype=dtype)
+
+    def forward(self, x1, x2):
+        x = torch.cat([x1, x2], dim=1)
+        scores1 = (self.q1conv(x) * self.k1conv(x1)).sum(dim=1)  # [B, H, W]
+        scores2 = (self.q2conv(x) * self.k2conv(x2)).sum(dim=1)
+        attention = torch.softmax(torch.stack([scores1, scores2], dim=-1).float(), dim=-1)
+        attention = attention.to(x1.dtype).permute(0, 3, 1, 2)  # [B, 2, H, W]
+        return x1 * attention[:, 0:1] + self.v2conv(x2) * attention[:, 1:2]

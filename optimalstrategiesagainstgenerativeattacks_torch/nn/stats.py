@@ -1,7 +1,8 @@
 """Set-statistic modules with parameters.
 
 Counterpart of ``optimalstrategiesagainstgenerativeattacks_tpu/nn/stats.py``
-for the image authenticator's pooling stat, ``MeanStdFcStat``.
+for the image authenticator's pooling stat, ``MeanStdFcStat``, and the
+Gaussian authenticator's, ``MeanStdStat`` (no parameters).
 """
 
 from __future__ import annotations
@@ -12,7 +13,20 @@ import torch
 from torch import nn
 
 from optimalstrategiesagainstgenerativeattacks_torch.nn.blocks import MLP
-from optimalstrategiesagainstgenerativeattacks_torch.ops.stats import custom_std, mean_stat
+from optimalstrategiesagainstgenerativeattacks_torch.ops.stats import (
+    custom_std,
+    mean_stat,
+    mean_std_stat,
+)
+
+
+class MeanStdStat(nn.Module):
+    """mean ++ safe std over the set axis; n_stats = 2."""
+
+    n_stats = 2
+
+    def forward(self, x):
+        return mean_std_stat(x)
 
 
 class FCStat(nn.Module):

@@ -27,3 +27,13 @@ def custom_std(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
         centred = x - x.mean(dim=1, keepdim=True)
         return torch.sqrt((centred * centred).sum(dim=1) / (x.shape[1] - 1) + eps)
     return torch.zeros((x.shape[0], *x.shape[2:]), dtype=x.dtype, device=x.device)
+
+
+def std_stat(x: torch.Tensor) -> torch.Tensor:
+    """[batch, sample, latent] -> [batch, latent] safe sample std."""
+    return custom_std(x)
+
+
+def mean_std_stat(x: torch.Tensor) -> torch.Tensor:
+    """Concat of mean and safe std along the latent axis (n_stats=2)."""
+    return torch.cat([mean_stat(x), std_stat(x)], dim=-1)

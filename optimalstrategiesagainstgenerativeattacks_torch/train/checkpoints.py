@@ -7,7 +7,8 @@ Counterpart of ``optimalstrategiesagainstgenerativeattacks_tpu/train/checkpoints
 ``get_latest_ckpt`` picks the largest step from the names.  A snapshot is
 one ``torch.save`` file holding global_step, last_epoch, both players'
 ``state_dict``s (the spectral u/v buffers included), both Adams, both
-MultiStepLR schedulers and the state of the noise generator: everything a
+MultiStepLR schedulers where the state has them (the image game's; the
+Gaussian game's has none) and the state of its generator: everything a
 resumed run needs to take the same steps as one never interrupted.
 """
 
@@ -19,10 +20,12 @@ from typing import Tuple
 
 import torch
 
-from optimalstrategiesagainstgenerativeattacks_torch.train.state import GameState
-
 CKPT_PREFIX = "model_"
 _PARTS = ("au", "im", "opt_au", "opt_im", "sched_au", "sched_im")
+
+
+def _parts(state):
+    return tuple(name for name in _PARTS if hasattr(state, name))
 
 
 def resolve_ckpt_path(path: str, outdir: str) -> str:
@@ -36,7 +39,8 @@ def resolve_ckpt_path(path: str, outdir: str) -> str:
 
 
 class CheckpointIO:
-    """Save and restore the full game state."""
+    """Save and restore the full state of either game (``train.state.GameState`` or
+    ``train.state.GaussianState``)."""
 
     def __init__(self, checkpoint_dir: str):
         self.checkpoint_dir = os.path.abspath(checkpoint_dir)
@@ -45,8 +49,8 @@ class CheckpointIO:
     def path_for_step(self, step: int) -> str:
         return os.path.join(self.checkpoint_dir, f"{CKPT_PREFIX}{step:08d}")
 
-    def save(self, state: GameState, step: int, last_epoch: int = 1) -> str:
-        payload = {name: getattr(state, name).state_dict() for name in _PARTS}
+    def save(self, state, step: int, last_epoch: int = 1) -> str:
+        payload = {name: getattr(state, name).state_dict() for name in _parts(state)}
         payload.update(global_step=int(step), last_epoch=int(last_epoch),
                        generator=state.generator.get_state())
         path = self.path_for_step(step)
@@ -55,14 +59,14 @@ class CheckpointIO:
         os.replace(tmp, path)  # a reader sees a whole snapshot or none
         return path
 
-    def load(self, path: str, state: GameState, players_only: bool = False) -> Tuple[int, int]:
+    def load(self, path: str, state, players_only: bool = False) -> Tuple[int, int]:
         """Restore a snapshot into ``state`` in place; returns (global_step, last_epoch).
 
         ``players_only`` restores the two players (parameters and spectral
         state) and nothing else, as ``--pretrained`` does.
         """
         payload = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
-        for name in ("au", "im") if players_only else _PARTS:
+        for name in ("au", "im") if players_only else _parts(state):
             getattr(state, name).load_state_dict(payload[name])
         if not players_only:
             state.generator.set_state(payload["generator"])

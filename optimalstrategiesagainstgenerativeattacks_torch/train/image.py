@@ -57,7 +57,7 @@ from optimalstrategiesagainstgenerativeattacks_torch.train.losses import (
     bce_with_logits,
     gan_accuracy,
 )
-from optimalstrategiesagainstgenerativeattacks_torch.train.state import GameState
+from optimalstrategiesagainstgenerativeattacks_torch.train.state import GameState, adam_step
 from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
 
 METRIC_KEYS = (
@@ -83,16 +83,18 @@ DIAG_KEYS = tuple(
 
 
 def compute_dtype(cfg: ImageGameConfig) -> Optional[torch.dtype]:
+    """bf16 for "bfloat16", None (f32, no casts) for "float32"."""
+    if cfg.compute_dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: bfloat16 or float32")
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
 
 
 def build_models(cfg: ImageGameConfig):
     """(au, im) for a config, on the CPU, parameters not yet initialised."""
-    if cfg.use_img_att:
-        raise NotImplementedError("use_img_att (ImgAttention) is not ported yet")
     dtype = compute_dtype(cfg)
     au = imodels.get_au(cfg.img_size, cfg.img_channels, cfg.style_dim, dtype=dtype)
     im = imodels.get_im(cfg.img_size, cfg.img_channels, cfg.style_dim,
+                        use_img_att=cfg.use_img_att,
                         num_env_noise_layers=cfg.num_env_noise_layers, dtype=dtype)
     return au, im
 
@@ -171,16 +173,6 @@ def r1_penalty(cfg: ImageGameConfig, out_real, real, si):
                             + g_si.float().square().reshape(b, -1).sum(1))
 
 
-def _adam_step(module, opt, sched, loss) -> None:
-    """One Adam step of ``module`` on ``loss``; the gradient reaches its parameters only."""
-    params = list(module.parameters())
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
-        p.grad = g
-    opt.step()
-    sched.step()
-    opt.zero_grad(set_to_none=True)
-
-
 def train_step(state: GameState, batch, z: Optional[torch.Tensor] = None):
     """One game step, updating ``state`` in place.
 
@@ -201,7 +193,8 @@ def train_step(state: GameState, batch, z: Optional[torch.Tensor] = None):
     if (step + 1) % cfg.n_au_steps == 0:
         power_iterate(im)
         im_loss_value, fake = im_loss()
-        _adam_step(im, state.opt_im, state.sched_im, im_loss_value)
+        adam_step(im, state.opt_im, im_loss_value)
+        state.sched_im.step()
         im_trained = 1.0
     else:
         with torch.no_grad():
@@ -220,7 +213,8 @@ def train_step(state: GameState, batch, z: Optional[torch.Tensor] = None):
     loss_on_fake = bce_with_logits(out_fake, 0.0)
     reg = r1_penalty(cfg, out_real, real, si) if r1 else torch.zeros_like(loss_on_real)
     au_loss = (loss_on_real + loss_on_fake + reg).mean()
-    _adam_step(au, state.opt_au, state.sched_au, au_loss)
+    adam_step(au, state.opt_au, au_loss)
+    state.sched_au.step()
 
     state.step = step
     with torch.no_grad():
@@ -243,21 +237,25 @@ def train_step(state: GameState, batch, z: Optional[torch.Tensor] = None):
 
 
 @torch.no_grad()
-def sample(state: GameState, leaked, generator: Optional[torch.Generator] = None):
+def sample(state: GameState, leaked, generator: Optional[torch.Generator] = None,
+           z: Optional[torch.Tensor] = None):
     """The impersonator's fake for uint8 leaked images [B, m, H, W, C] (no gradient,
-    no change to the state): [B, n, H, W, C] in the compute dtype."""
+    no change to the state): [B, n, H, W, C] in the compute dtype.  ``z``
+    [B, n, style] replaces the noise draw from ``generator``."""
     cfg = state.cfg
     return state.im(prepare(cfg, leaked, state.device), cfg.n, cfg.remove_noise_mean,
-                    generator=generator)
+                    z=z, generator=generator)
 
 
 @torch.no_grad()
-def eval_step(state: GameState, batch, generator: Optional[torch.Generator] = None):
+def eval_step(state: GameState, batch, generator: Optional[torch.Generator] = None,
+              z: Optional[torch.Tensor] = None):
     """Both players' losses and accuracies on a batch, without any update
-    (the reference's ``make_eval_step``): 0-dim f32 tensors on the device."""
+    (the reference's ``make_eval_step``): 0-dim f32 tensors on the device.
+    ``z`` [B, n, style] replaces the noise draw from ``generator``."""
     cfg = state.cfg
     real, leaked, si = prepare_batch(cfg, batch, state.device)
-    fake = state.im(leaked, cfg.n, cfg.remove_noise_mean, generator=generator)
+    fake = state.im(leaked, cfg.n, cfg.remove_noise_mean, z=z, generator=generator)
     im_loss = bce_with_logits(state.au(fake, si), 1.0).mean()
     out_real, out_fake = au_outputs(state.au, real, fake, si)
     loss_on_real = bce_with_logits(out_real, 1.0)
@@ -328,14 +326,27 @@ def _to_01(img_sample: np.ndarray) -> np.ndarray:
     return (np.clip(np.asarray(img_sample, np.float32), -1, 1) + 1.0) / 2.0
 
 
-def sample_and_save_imgs(logger, state: GameState, ds, ds_prefix: str, indices,
-                         generator: torch.Generator, dbg: bool = False) -> None:
+def noise_generator(device, *key: int) -> torch.Generator:
+    """A fresh generator on ``device`` seeded from the non-negative integers ``key``.
+
+    The loop's sampling and eval noise depends on these indices only, as the
+    JAX loop's does on its ``fold_in`` chain of a fixed key: so a resumed run
+    draws the noise that an uninterrupted one draws (the bits differ from
+    JAX's).
+    """
+    seed = int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0]) >> 1
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def sample_and_save_imgs(logger, state: GameState, ds, ds_prefix: str, indices, key: int,
+                         dbg: bool = False) -> None:
     """Leaked and impersonator (and, with ``dbg``, real and si) grids for chosen
-    episodes (the reference's ``gim_img_training.py:34-73``)."""
+    episodes (the reference's ``gim_img_training.py:34-73``); the j-th episode's
+    noise comes from ``noise_generator(device, key, j)``, at every step alike."""
     gs = state.step
-    for idx in indices:
+    for j, idx in enumerate(indices):
         data = ds[idx]
-        fake = sample(state, data["leaked_sample"][None], generator)
+        fake = sample(state, data["leaked_sample"][None], noise_generator(state.device, key, j))
         cat = f"{ds_prefix} imgs_{idx:04d}"
         logger.add_imgs(_to_01(data["leaked_sample"] / 127.5 - 1.0), cat, "leaked", gs)
         logger.add_imgs(_to_01(fake[0].float().cpu().numpy()), cat, "impersonator", gs)
@@ -344,13 +355,14 @@ def sample_and_save_imgs(logger, state: GameState, ds, ds_prefix: str, indices,
             logger.add_imgs(_to_01(data["si_sample"] / 127.5 - 1.0), cat, "si", gs)
 
 
-def run_eval(state: GameState, ds, logger, batch_size: int, generator: torch.Generator) -> dict:
+def run_eval(state: GameState, ds, logger, batch_size: int, key: int) -> dict:
     """Eval over the val set (the reference's ``gim_img_training.py:98-154``),
-    logging the means; the sums reach the host in one transfer."""
+    logging the means; the sums reach the host in one transfer.  Batch i's noise
+    comes from ``noise_generator(device, key, state.step, i)``."""
     loader = EpisodicBatchLoader(ds, batch_size=batch_size, shuffle=False, drop_last=True)
     sums, count = None, 0
-    for batch in loader:
-        m = eval_step(state, batch, generator)
+    for i, batch in enumerate(loader):
+        m = eval_step(state, batch, noise_generator(state.device, key, state.step, i))
         vec = torch.stack([m[k] for k in EVAL_KEYS])
         sums = vec if sums is None else sums + vec
         count += 1
@@ -382,8 +394,9 @@ def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress
     gs % eval_every == 0 (so all at gs = 0).  A last checkpoint is written at
     the end, on KeyboardInterrupt (then it returns) and on PermissionError
     (then it goes on with the next epoch).  Sampling and eval draw their
-    noise from their own generator, so they leave the training run's
-    stream as it is.  Returns the state.
+    noise from generators seeded from (seed + 17, episode) and (seed + 17,
+    step, batch): they leave the training run's stream as it is, and a resumed
+    run samples and evaluates as an uninterrupted one.  Returns the state.
     """
     au, im = build_models(cfg)
     logger = logger or Logger(
@@ -411,7 +424,7 @@ def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress
     val_eval_indices = list(range(0, len(val_ds), max(1, len(val_ds) // 10)))
     loader = EpisodicBatchLoader(train_ds, batch_size=train_bs, shuffle=True, drop_last=True,
                                  num_workers=cfg.num_workers, seed=cfg.seed)
-    sample_gen = torch.Generator(device=device).manual_seed(cfg.seed + 17)
+    sample_key = cfg.seed + 17
 
     log_buf = torch.zeros((max(cfg.log_every, 1), len(METRIC_KEYS)), device=device)
     buf_count = 0
@@ -492,11 +505,11 @@ def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress
                 checkpoint_io.save(state, gs, last_epoch=ep)
             if gs % cfg.save_imgs_every == 0:
                 sample_and_save_imgs(logger, state, train_ds, "train", train_eval_indices,
-                                     sample_gen, cfg.dbg)
+                                     sample_key, cfg.dbg)
                 sample_and_save_imgs(logger, state, val_ds, "val", val_eval_indices,
-                                     sample_gen, cfg.dbg)
+                                     sample_key, cfg.dbg)
             if gs % cfg.eval_every == 0:
-                run_eval(state, val_ds, logger, val_bs, sample_gen)
+                run_eval(state, val_ds, logger, val_bs, sample_key)
 
     epoch_iter = range(last_epoch, cfg.n_epochs)
     if progress:

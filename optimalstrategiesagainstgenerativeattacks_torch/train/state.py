@@ -1,8 +1,9 @@
-"""Game state: both players, their optimizers, the step and the noise generator.
+"""Game states: both players, their optimizers, the step and the generator.
 
-Counterpart of ``optimalstrategiesagainstgenerativeattacks_tpu/train/state.py``.
-The spectral-norm u/v vectors live as buffers inside the players' modules,
-and the players' parameters are updated in place by their Adams.
+Counterpart of ``optimalstrategiesagainstgenerativeattacks_tpu/train/state.py``,
+one dataclass a game.  The spectral-norm u/v vectors live as buffers inside
+the image players' modules, and the players' parameters are updated in place
+by their Adams.
 """
 
 from __future__ import annotations
@@ -11,7 +12,10 @@ from dataclasses import dataclass
 
 import torch
 
-from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+from optimalstrategiesagainstgenerativeattacks_torch.utils.config import (
+    GaussianGameConfig,
+    ImageGameConfig,
+)
 
 
 @dataclass
@@ -31,3 +35,31 @@ class GameState:
     @property
     def device(self) -> torch.device:
         return next(self.au.parameters()).device
+
+
+@dataclass
+class GaussianState:
+    """Full mutable state of a Gaussian GIM game (no spectral state, no schedulers)."""
+
+    cfg: GaussianGameConfig
+    au: torch.nn.Module
+    im: torch.nn.Module
+    opt_au: torch.optim.Optimizer
+    opt_im: torch.optim.Optimizer
+    generator: torch.Generator  # draws every batch and the impersonator's noise
+    step: int = -1
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.au.parameters()).device
+
+
+def adam_step(module: torch.nn.Module, opt: torch.optim.Optimizer, loss: torch.Tensor) -> None:
+    """One optimizer step of ``module`` on ``loss``; the gradient is taken with
+    ``torch.autograd.grad`` over the module's parameters only, so a frozen
+    player in the same graph keeps its ``.grad`` untouched."""
+    params = list(module.parameters())
+    for p, g in zip(params, torch.autograd.grad(loss, params)):
+        p.grad = g
+    opt.step()
+    opt.zero_grad(set_to_none=True)

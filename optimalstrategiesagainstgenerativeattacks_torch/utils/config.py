@@ -1,13 +1,13 @@
-"""The image game's hyperparameters, as the port reads them, and ``args.json``.
+"""The games' hyperparameters, as the port reads them, and ``args.json``.
 
 The fields and their defaults are those of the reference's
-``optimalstrategiesagainstgenerativeattacks_tpu/utils/config.py``
-``ImageGameConfig`` (the Omniglot paper hparams), restricted to what the
-port's models, train step and loop read; a test holds every default equal to
-the reference's.  The port keeps its own copy so that it, and a GPU host
-running it, needs nothing of the reference package.  ``from_dict`` ignores
-keys it does not know, so an ``args.json`` written by the reference (with
-its TPU-only keys) loads.
+``optimalstrategiesagainstgenerativeattacks_tpu/utils/config.py``:
+``GaussianGameConfig`` whole, and ``ImageGameConfig`` (the Omniglot paper
+hparams) restricted to what the port's models, train step and loop read;
+tests hold every default equal to the reference's.  The port keeps its own
+copy so that it, and a GPU host running it, needs nothing of the reference
+package.  ``from_dict`` ignores keys it does not know, so an ``args.json``
+written by the reference (with its TPU-only keys) loads.
 
 ``save_args`` / ``load_args`` snapshot a run's arguments to
 ``<outdir>/args.json`` as flat JSON with the reference's key names;
@@ -40,6 +40,45 @@ def load_args(outdir: str) -> dict:
     """Load the args.json snapshot as a dict (``ImageGameConfig.from_dict`` reads it)."""
     with open(os.path.join(outdir, "args.json")) as f:
         return json.load(f)
+
+
+@dataclass
+class GaussianGameConfig:
+    """Hyperparameters of the synthetic Gaussian GIM game (the reference CLI's defaults).
+
+    ``au_stat`` ("mean_std" or "mean_std_fc") and ``au_hidden_scale`` choose the
+    authenticator's pooling stat and widen its head; the defaults are the
+    reference architecture.  ``log_every`` is the host's metric-read cadence.
+    """
+
+    outdir: str = "./gim_gaussians_outdir/"
+    resume_from_ckpt: Optional[str] = None
+    pretrained: Optional[str] = None
+    n_iters: int = 500_000
+    batch_size: int = 4096
+    m: int = 1
+    n: int = 10
+    k: int = 10
+    prior_sigma: float = 10.0
+    src_sigma: float = 1.0
+    src_dim: int = 1
+    au_lr: float = 1e-4
+    im_lr: float = 1e-4
+    reg_param: float = 0.0
+    remove_noise_mean: bool = True
+    save_every: int = 100_000
+    eval_every: int = 1000
+    save_stats_every: int = 100
+    seed: int = 1
+    log_every: int = 100
+    compute_dtype: str = "float32"
+    au_stat: str = "mean_std"
+    au_hidden_scale: int = 1
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "GaussianGameConfig":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
 
 
 @dataclass

@@ -1,12 +1,15 @@
 """Where a train step's time goes on the GPU: a torch.profiler trace of a few steps.
 
-    python scripts/torch_profile_step.py [--config flagship|vox] [--warm N] [--steps N]
-                                         [--trace PATH.json.gz]
+    python scripts/torch_profile_step.py [--config flagship|vox|gaussian] [--warm N]
+                                         [--steps N] [--trace PATH.json.gz]
 
 Builds the port's game state from a seed at the flagship config (B=128,
-32x32x1, style 512, bf16) or the VoxCeleb config (64x64x3, R1 with
-reg_param 10), takes ``--warm`` steps, then traces ``--steps`` calls of
-``train_step`` on two device-resident uint8 batches and prints, per step:
+32x32x1, style 512, bf16), the VoxCeleb config (64x64x3, R1 with
+reg_param 10) or the Gaussian game's Nash-check config (d=10, m1 n5 k10,
+head x8, B=4096, f32), takes ``--warm`` steps, then traces ``--steps``
+calls of ``train_step`` (the image game's on two device-resident uint8
+batches; the Gaussian game's drawing its batch on the device) and prints,
+per step:
   * host ms (wall clock up to the final synchronize) and the ms the host
     took to enqueue the steps (before that synchronize);
   * device busy ms (the union of the kernels', memsets' and copies'
@@ -33,8 +36,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from optimalstrategiesagainstgenerativeattacks_torch.train import gaussian as tg  # noqa: E402
 from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg  # noqa: E402
 from optimalstrategiesagainstgenerativeattacks_torch.utils.config import (  # noqa: E402
+    GaussianGameConfig,
     ImageGameConfig,
 )
 
@@ -43,6 +48,8 @@ CONFIGS = {
     # the VoxCeleb2 paper hparams (train_gim_on_imgs.py:6-8)
     "vox": dict(img_size=64, img_channels=3, au_lr=1e-4, im_lr=1e-4,
                 env_noise_mapping_lr=1e-6, reg_param=10.0),
+    # the README's Nash check of the Gaussian game
+    "gaussian": dict(src_dim=10, m=1, n=5, k=10, au_hidden_scale=8, batch_size=4096),
 }
 # (category, substrings of a kernel name), first match wins
 CATEGORIES = (
@@ -95,21 +102,34 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU: torch.cuda.is_available() is false")
 
-    cfg = ImageGameConfig(seed=args.seed, **CONFIGS[args.config])
-    rng = np.random.default_rng(args.seed)
-    batches = [
-        {key: torch.from_numpy(rng.integers(
-            0, 256, (cfg.batch_size, n, cfg.img_size, cfg.img_size, cfg.img_channels),
-            dtype=np.uint8)).cuda()
-         for key, n in (("real_sample", cfg.n), ("leaked_sample", cfg.m), ("si_sample", cfg.k))}
-        for _ in range(2)
-    ]
-    state, _ = timg.train_gim_imgs_steps(cfg, itertools.cycle(batches), args.warm, device="cuda")
+    if args.config == "gaussian":
+        cfg = GaussianGameConfig(seed=args.seed, **CONFIGS[args.config])
+        state = tg.create_state(cfg, "cuda")
+        tg.train_chunk(state, args.warm)
+
+        def step():
+            tg.train_step(state)
+    else:
+        cfg = ImageGameConfig(seed=args.seed, **CONFIGS[args.config])
+        rng = np.random.default_rng(args.seed)
+        batches = [
+            {key: torch.from_numpy(rng.integers(
+                0, 256, (cfg.batch_size, n, cfg.img_size, cfg.img_size, cfg.img_channels),
+                dtype=np.uint8)).cuda()
+             for key, n in (("real_sample", cfg.n), ("leaked_sample", cfg.m),
+                            ("si_sample", cfg.k))}
+            for _ in range(2)
+        ]
+        state, _ = timg.train_gim_imgs_steps(cfg, itertools.cycle(batches), args.warm,
+                                             device="cuda")
+
+        def step():
+            timg.train_step(state, batches[state.step % 2])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            timg.train_step(state, batches[state.step % 2])
+            step()
         t_enqueued = time.perf_counter()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -126,8 +146,10 @@ def main() -> None:
         by_cat[category(e.name)] += e.time_range.end - e.time_range.start
         by_name[e.name] += e.time_range.end - e.time_range.start
     n = args.steps
-    print(f"{args.config}: B={cfg.batch_size} img={cfg.img_size}x{cfg.img_size}x"
-          f"{cfg.img_channels} style={cfg.style_dim} reg_param={cfg.reg_param} "
+    shape = (f"d={cfg.src_dim} m={cfg.m} n={cfg.n} k={cfg.k} head x{cfg.au_hidden_scale}"
+             if args.config == "gaussian" else
+             f"img={cfg.img_size}x{cfg.img_size}x{cfg.img_channels} style={cfg.style_dim}")
+    print(f"{args.config}: B={cfg.batch_size} {shape} reg_param={cfg.reg_param} "
           f"{cfg.compute_dtype}; {n} traced steps after {args.warm}")
     print(f"  host {wall_us / n / 1e3:.2f} ms/step under the profiler, of which enqueue "
           f"{(t_enqueued - t0) * 1e3 / n:.2f} ms/step")

@@ -14,7 +14,9 @@
   noise generator), at the R1 config.
 * Loop: ``train_gim_imgs(device="cpu")`` writes ``model_{step:08d}``
   checkpoints, scalars, encoder diagnostics, image grids and evals at their
-  cadences, and resumes from a checkpoint.
+  cadences, and resumes from a checkpoint; a run resumed from its step-0
+  checkpoint writes the step-1 eval scalars and image grids of the run never
+  interrupted.
 * CLI: its flags are the JAX CLI's without the TPU-only ones, plus
   ``--device``, with the same defaults; ``--device cpu -dbg`` trains the
   VoxCeleb2 layout with R1, saves, and resumes.
@@ -228,6 +230,65 @@ def test_train_gim_imgs_writes_at_its_cadences_and_resumes(trees, tmp_path):
                                   device="cpu")
     assert resumed.step == 4
     assert get_latest_ckpt(str(ckpts)).endswith("model_00000004")
+
+
+class _FixedEpisodes:
+    """Two classes that both give one fixed uint8 episode, whatever the epoch's RNG:
+    every epoch's batch is the same, so a run resumed from a checkpoint takes the
+    very steps of an uninterrupted one."""
+
+    root = "<memory>"
+
+    def __init__(self, cfg, seed: int):
+        episode = uint8_batch(dataclasses.replace(cfg, batch_size=1), seed)
+        self.episode = {k: v[0] for k, v in episode.items()}
+        self.episode["class"] = np.int32(0)
+
+    def __len__(self) -> int:
+        return 2
+
+    def sample_episode(self, index, rng):
+        return self.episode
+
+    def __getitem__(self, index):
+        return self.episode
+
+
+def test_resumed_loop_samples_and_evaluates_as_an_uninterrupted_one(tmp_path):
+    """The step-1 eval scalars and image grids of a run resumed from its step-0
+    checkpoint equal those of the run never interrupted: the loop's noise depends
+    on (seed, step, batch) and (seed, episode) only."""
+    from optimalstrategiesagainstgenerativeattacks_torch.train.logger import Logger
+
+    cfg = _loop_cfg(tmp_path / "a", "", batch_size=2, save_every=1, log_every=1, eval_every=1,
+                    save_imgs_every=1, log_enc_every=100)
+    train_ds, val_ds = _FixedEpisodes(cfg, 0), _FixedEpisodes(cfg, 1)
+
+    def run(run_cfg):
+        out = run_cfg.outdir
+        logger = Logger(*(os.path.join(out, d) for d in ("logs", "imgs", "tb")))
+        timg.train_gim_imgs(run_cfg, train_ds, val_ds, logger=logger, progress=False,
+                            device="cpu")
+        return logger
+
+    straight = run(cfg)  # epochs of one step: steps 0 and 1
+    resumed = run(dataclasses.replace(  # epoch 0 again (step 1), then epoch 1 (step 2)
+        cfg, outdir=str(tmp_path / "b"),
+        resume_from_ckpt=str(tmp_path / "a" / "ckpts" / "model_00000000")))
+
+    def at_step_1(logger, category):
+        return {k: dict(pts)[1] for k, pts in logger.stats[category].items()}
+
+    assert at_step_1(resumed, "train_losses") == at_step_1(straight, "train_losses")
+    for category in ("eval_losses", "eval_au_out", "eval_accuracy"):
+        assert at_step_1(resumed, category) == at_step_1(straight, category), category
+    grids = [os.path.join(d, "imgs", f"{split} imgs_{i:04d}", "impersonator", "00000001.png")
+             for d in ("a", "b") for split in ("train", "val") for i in (0, 1)]
+    for a, b in zip(grids[:4], grids[4:]):
+        assert (tmp_path / a).read_bytes() == (tmp_path / b).read_bytes(), a
+    # the grids follow each episode under the same noise at every save
+    zero = tmp_path / "a" / "imgs" / "train imgs_0000" / "impersonator" / "00000000.png"
+    assert (tmp_path / grids[0]).read_bytes() != zero.read_bytes()  # the players moved
 
 
 def test_cli_flags_are_the_jax_clis_without_the_tpu_only_ones():

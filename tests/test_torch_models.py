@@ -132,5 +132,10 @@ def test_bf16_players_match_jax(players, inputs):
 
 
 def test_build_models_rejects_unported_options():
-    with pytest.raises(NotImplementedError):
-        timg.build_models(small_cfg(use_img_att=True))
+    # every model option of the reference is ported: use_img_att builds img_att ...
+    _, im = timg.build_models(small_cfg(use_img_att=True))
+    assert hasattr(im, "img_att")
+    assert not hasattr(timg.build_models(small_cfg())[1], "img_att")
+    # ... and a compute dtype the reference does not have is refused
+    with pytest.raises(ValueError):
+        timg.build_models(small_cfg(compute_dtype="float16"))

@@ -21,7 +21,10 @@ import torch
 
 from optimalstrategiesagainstgenerativeattacks_torch.port.transplant import load_flax
 from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
-from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+from optimalstrategiesagainstgenerativeattacks_torch.utils.config import (
+    GaussianGameConfig,
+    ImageGameConfig,
+)
 from optimalstrategiesagainstgenerativeattacks_tpu.train.image import build_models as _jax_build
 from optimalstrategiesagainstgenerativeattacks_tpu.utils import config as jconfig
 
@@ -115,6 +118,14 @@ def test_config_defaults_match_the_reference():
     assert ImageGameConfig.from_dict(dataclasses.asdict(reference)) == ImageGameConfig()
 
 
+def test_gaussian_config_defaults_match_the_reference():
+    reference = jconfig.GaussianGameConfig()
+    assert dataclasses.asdict(GaussianGameConfig()) == dataclasses.asdict(reference)
+    # an args.json of the reference CLI, with keys the config does not hold, loads
+    args = dict(dataclasses.asdict(reference), ckpt_dir_name="ckpts", src_dim=10, n=5)
+    assert GaussianGameConfig.from_dict(args) == GaussianGameConfig(src_dim=10, n=5)
+
+
 def test_port_imports_with_jax_blocked():
     code = (
         "import sys\n"
@@ -140,10 +151,16 @@ def test_port_imports_with_jax_blocked():
         "import optimalstrategiesagainstgenerativeattacks_torch.eval_gim_on_authentication\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.train_siamese_baseline\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.train_arcface_baseline\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.train.gaussian as g\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.models.gaussian\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.theory.game_value as v\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.train_gim_on_gaussians\n"
+        "assert round(v.game_value_mnk(1, 5, 10, 10), 6) == 0.921131\n"
+        "g.train_step(g.create_state(g.GaussianGameConfig(batch_size=8, src_dim=2), 'cpu'))\n"
         "from optimalstrategiesagainstgenerativeattacks_torch.eval.scorer import roc_auc\n"
         "assert roc_auc([1, 0, 1], [0.3, 0.1, 0.3]) == 1.0\n"
         "b.build_siamese(1, 16)\n"
-        "au, im = t.build_models(t.ImageGameConfig(img_size=16, style_dim=32))\n"
+        "au, im = t.build_models(t.ImageGameConfig(img_size=16, style_dim=32, use_img_att=True))\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
