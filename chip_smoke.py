@@ -21,7 +21,11 @@ Phases (each prints its lines; the first failure exits non-zero):
               function);
   4. slice:   the flagship impersonator and authenticator forwards in f32
               on the card (kernels) against the same models on the CPU
-              (plain versions), same weights, fixed noise;
+              (plain versions), same weights, fixed noise; then every SN
+              conv site of one bf16 train step of the flagship, with
+              use_img_att, VoxCeleb and the multi-seed CLI's config, run as
+              the port runs it, forward and backward, against the same conv
+              in f32 without cuDNN;
   5. R1:      the R1 penalty and the authenticator's parameter gradients at
               the VoxCeleb widths in f32 on the card (kernels, and the
               attention core's backward differentiated again) against the
@@ -63,17 +67,38 @@ Phases (each prints its lines; the first failure exits non-zero):
               metrics and fakes (img_att's blend is not tanh-bounded, in the
               reference neither: its range is printed), phase 6's launch
               counts, and its steps/s beside phase 6's.
+ 12. feed:    the data feeding at the flagship (964 x 20 images of 32x32x1)
+              and VoxCeleb (2000 x 20 of 64x64x3, mirrored) sizes on
+              in-memory seeded sets: the device loader's batches traced to
+              their classes' frames (distinct, flips seen where the set
+              mirrors) and its epochs' classes against the numpy permutation;
+              prefetched batches equal to the host loader's byte for byte;
+              the device loader's time a batch alone (CUDA events); then
+              train steps fed by the device loader, the host loader with
+              prefetch and with prefetch_depth 0, run A B C C B A, steps/s
+              each, every run's launches checked;
+ 13. multiseed: ``train_multiseed_gim_imgs`` at the flagship with 2 seeds on
+              phase 12's set (launches 2 x steps x one step's, per-seed
+              checkpoints, one restored by the eval CLI's restore and scored
+              against its state), then multi-steps/s, seed-steps/s and peak
+              memory; 2 f32 multi-seed steps against single-seed runs of each
+              seed on the same batches; then the multi-seed CLI's default
+              config (img 16, style 64, B16) with 3 seeds: its launches and
+              steps/s beside one seed's.
 The second-to-last line is a JSON summary of the kernels, with times per
 flagship step, per VoxCeleb step and per gim-vs-gim eval batch of each
-config (sum over sites of ms x launches), and the launches of each run;
-the last line is {"ok": true, "device": {...}}.
+config (sum over sites of ms x launches), and the launches of each run
+(``multiseed_launches``: phase 13's flagship run); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import csv
+import io
 import itertools
 import json
 import math
@@ -139,6 +164,7 @@ EVAL_BATCH = 64
 EVAL_EPISODES, VOX_EVAL_EPISODES = 520, 160  # 8 batches + a padded ninth; 2 + a padded third
 ARCFACE_BATCH = 128
 EVAL_DEVICE = "cuda"  # of phases 8 and 9
+FEED_DEVICE = "cuda"  # of phases 12 and 13
 EVAL_ADAIN_SITES = {  # per impersonator call
     (320, 512, 4, 4): 11,
     (320, 256, 8, 8): 2,
@@ -180,6 +206,8 @@ SLICE_TOL = 1e-3  # f32 forward, card vs CPU, TF32 off: |err| <= tol * max(1, ma
 # f32 R1 penalty and authenticator gradients, card vs CPU, TF32 off: per tensor
 # |err| <= R1_TOL * max|ref| of the tensor + R1_TOL * 1e-3 * max|ref| of the player
 R1_TOL = 1e-3
+# bf16 SN convs on the card against f32 without cuDNN: several bf16 roundings of a sum
+CONV_TOL = 2e-2
 
 # the Gaussian game at the README's Nash-check config (d=10, m1 n5 k10, head x8, B=4096)
 GAUSS_CONFIG = dict(src_dim=10, m=1, n=5, k=10, au_hidden_scale=8, batch_size=4096,
@@ -191,7 +219,23 @@ GAUSS_TIMED_CHUNKS = 10  # chunks of log_every steps timed after the loop
 # each parameter |err| <= GAUSS_TOL * max|ref| of its tensor where its gradient is above
 # 1e-6 of the player's largest, else within 2 lr (Adam's first step is lr g / (|g| + eps))
 GAUSS_TOL = 1e-4
-N_PHASES = 11
+# phase 12: seeded in-memory sets (classes x images a class): Omniglot's 964 x 20 at
+# 32x32x1 (19.7 MB) and 2000 identities x 20 frames at 64x64x3 (492 MB)
+FEED_SETS = {"flagship": (964, 20), "vox": (2000, 20)}
+FEED_EXAMPLES_PER_CLASS = 100  # the CLIs' ds_n_examples_per_cls
+FEED_STEPS = {"flagship": 8, "vox": 3}  # timed steps a run, after one that fills the pipeline
+FEED_ORDER = ("device", "prefetch", "sync", "sync", "prefetch", "device")  # A B C C B A
+FEED_ASSEMBLY_BATCHES = 50  # device-loader batches timed alone
+FEED_CHECKED_EPISODES = 16  # episodes a batch whose frames are traced to their class
+FEED_PREFETCH_CHECKED = 4  # prefetched batches compared with the host loader's
+# phase 13: flagship multi-seed; the multi-seed CLI's default config
+MULTISEED_SEEDS, MULTISEED_STEPS, MULTISEED_TIMED = 2, 4, 4
+SMALL_SEEDS, SMALL_STEPS, SMALL_TIMED = 3, 10, 10
+# f32 multi-seed against single-seed steps on the card: the Gaussian phase's rule
+MULTISEED_TOL = 1e-4
+MULTISEED_FLIPS = 4  # a tensor's entries whose Adam step may take the other sign (as in the
+# R1 train-step test of the CPU suite)
+N_PHASES = 13
 
 # NVIDIA H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -613,6 +657,82 @@ def check_slice(seed: int, use_img_att: bool = False) -> None:
         fail("fake images outside [-1, 1]")
 
 
+def conv_site_configs(seed: int) -> dict:
+    """The configs whose SN conv sites phase 4 checks: the flagship, with
+    ``use_img_att``, VoxCeleb and the multi-seed CLI's defaults."""
+    from optimalstrategiesagainstgenerativeattacks_torch import train_multiseed_gim_on_imgs as tcli
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+
+    small = tcli.build_parser().parse_args(["-o", "-", "--dataset_root", "-", "--seeds", "0"])
+    return {"flagship": ImageGameConfig(seed=seed),
+            "img_att": ImageGameConfig(seed=seed, use_img_att=True),
+            "vox": ImageGameConfig(img_size=64, img_channels=3, reg_param=10.0, seed=seed),
+            "cli_small": ImageGameConfig.from_dict(dict(vars(small), seed=seed))}
+
+
+def check_conv_sites(seed: int) -> None:
+    """Every spectrally normalised conv site of one bf16 train step of each config, run
+    as the port runs it (``nn/blocks.py:conv2d`` on the card) on random data, forward
+    and backward, against the same conv in f32 without cuDNN (the native im2col and
+    cuBLAS path): max|err| <= CONV_TOL x max|ref| for the output and both gradients.
+    cuDNN computes some bf16 convs of one channel wrongly
+    (``nn/blocks.py:conv_one_channel``); this finds any other such site."""
+    import torch.nn.functional as F
+
+    from optimalstrategiesagainstgenerativeattacks_torch.nn.blocks import SNConv, conv2d
+    from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    for name, cfg in conv_site_configs(seed).items():
+        state = timg.create_state(cfg, *timg.build_models(cfg), cfg.seed, "cuda")
+        sites = {}
+
+        def record(mod, args):
+            x = args[0]
+            key = (tuple(x.shape), tuple(mod.weight.shape), mod.padding,
+                   x.is_contiguous(memory_format=torch.channels_last))
+            sites[key] = sites.get(key, 0) + 1
+
+        hooks = [m.register_forward_pre_hook(record) for player in (state.au, state.im)
+                 for m in player.modules() if isinstance(m, SNConv)]
+        rng = np.random.default_rng(seed)
+        s, c = cfg.img_size, cfg.img_channels
+        batch = {k: torch.from_numpy(rng.integers(0, 256, (cfg.batch_size, n, s, s, c),
+                                                  dtype=np.uint8)).cuda()
+                 for k, n in (("real_sample", cfg.n), ("leaked_sample", cfg.m),
+                              ("si_sample", cfg.k))}
+        timg.train_step(state, batch)
+        for h in hooks:
+            h.remove()
+        del state
+        worst = (0.0, None)
+        for (xs, ws, pad, cl), count in sites.items():
+            x = torch.randn(xs, device="cuda", generator=gen).to(torch.bfloat16)
+            if cl:
+                x = x.contiguous(memory_format=torch.channels_last)
+            w = (torch.randn(ws, device="cuda", generator=gen) / math.sqrt(math.prod(ws[1:])))
+            bias = torch.randn(ws[0], device="cuda", generator=gen)
+            x.requires_grad_(True)
+            wb = w.to(torch.bfloat16).requires_grad_(True)
+            out = conv2d(x, wb, bias.to(torch.bfloat16), pad)
+            g = torch.randn(out.shape, device="cuda", generator=gen)
+            got = (out, *torch.autograd.grad(out, (x, wb), g.to(out.dtype)))
+            xf = x.detach().float().requires_grad_(True)
+            wf = wb.detach().float().requires_grad_(True)
+            with torch.backends.cudnn.flags(enabled=False):
+                ref = F.conv2d(xf, wf, bias, padding=pad)
+                want = (ref, *torch.autograd.grad(ref, (xf, wf), g))
+            for what, a, b in zip(("output", "d input", "d weight"), got, want):
+                err = (a.float() - b).abs().max().item() / b.abs().max().item()
+                if not err <= CONV_TOL:
+                    fail(f"conv site {name} x{xs} w{ws}: {what} off by {err:.3g} of its max "
+                         f"(limit {CONV_TOL})")
+                worst = max(worst, (err, f"{what} at x{xs} w{ws}"))
+        print(f"  {name}: {len(sites)} SN conv sites, {sum(sites.values())} calls a step; worst "
+              f"error / max|ref| {worst[0]:.3g} ({worst[1]})")
+        torch.cuda.empty_cache()
+
+
 def run_train(seed: int, n_steps: int, counters, use_img_att: bool = False) -> tuple:
     """Flagship train steps through ``train_gim_imgs_steps``; returns (launches,
     seconds a steady step)."""
@@ -700,7 +820,7 @@ def kernel_results() -> dict:
     return {
         name: {"name": name, "route": route, "source": src, "replaces": rep,
                "launches": 0, "vox_launches": 0, "eval_launches": 0, "vox_eval_launches": 0,
-               "gaussian_launches": 0, "img_att_launches": 0,
+               "gaussian_launches": 0, "img_att_launches": 0, "multiseed_launches": 0,
                **{f"{p}launches_per_batch_by_pairing": {pair: n[name] for pair, n in table.items()}
                   for p, table in pairings.items()},
                "max_abs_err": 0.0,
@@ -798,28 +918,36 @@ def check_r1(seed: int) -> None:
 
 class SeededEpisodes:
     """An in-memory episodic dataset of uint8 noise images drawn from a seed:
-    ``n_classes`` classes of ``per_class`` images, one episode per class.
-    It offers the interface ``EpisodicBatchLoader`` and the eval grid read
-    (``__len__``, ``sample_episode``, ``__getitem__``, ``root``) without files
-    or PIL."""
+    ``n_classes`` classes of ``per_class`` images, ``example_cnt_per_class``
+    episodes a class.  It offers the interface ``EpisodicBatchLoader``, the
+    device loader and the eval grid read (``__len__``, ``sample_episode``,
+    ``__getitem__``, ``stacked_cache``, ``root``) without files or PIL; with
+    ``mirror`` the device loader flips images, as on VoxCeleb2."""
 
     root = "<memory>"
 
-    def __init__(self, cfg, n_classes: int, per_class: int, seed: int):
+    def __init__(self, cfg, n_classes: int, per_class: int, seed: int,
+                 example_cnt_per_class: int = 1, mirror: bool = False):
         rng = np.random.default_rng(seed)
         self.m, self.n, self.k = cfg.m, cfg.n, cfg.k
+        self.si = cfg.k
+        self.example_cnt_per_class, self.mirror = example_cnt_per_class, mirror
         self.images = rng.integers(
             0, 256, (n_classes, per_class, cfg.img_size, cfg.img_size, cfg.img_channels),
             dtype=np.uint8)
 
     def __len__(self) -> int:
-        return self.images.shape[0]
+        return self.images.shape[0] * self.example_cnt_per_class
+
+    def stacked_cache(self) -> np.ndarray:
+        return self.images
 
     def sample_episode(self, index: int, rng: np.random.Generator) -> dict:
+        cls = index // self.example_cnt_per_class
         pick = rng.choice(self.images.shape[1], size=self.m + self.n + self.k, replace=False)
-        imgs = self.images[index, pick]
+        imgs = self.images[cls, pick]
         return {"leaked_sample": imgs[: self.m], "real_sample": imgs[self.m: self.m + self.n],
-                "si_sample": imgs[self.m + self.n:], "class": np.int32(index)}
+                "si_sample": imgs[self.m + self.n:], "class": np.int32(cls)}
 
     def __getitem__(self, index: int) -> dict:
         return self.sample_episode(index, np.random.default_rng(index))
@@ -893,19 +1021,24 @@ def run_vox(seed: int, counters):
           f"style={cfg.style_dim} m={cfg.m} n={cfg.n} k={cfg.k} reg_param={cfg.reg_param} "
           f"lr au/im/noise {cfg.au_lr}/{cfg.im_lr}/{cfg.env_noise_mapping_lr} {cfg.compute_dtype}")
     per_class = cfg.m + cfg.n + cfg.k + 1
-    train_ds = SeededEpisodes(cfg, cfg.batch_size, per_class, seed)
-    val_ds = SeededEpisodes(cfg, cfg.batch_size, per_class, seed + 1)
+    train_ds = SeededEpisodes(cfg, cfg.batch_size, per_class, seed, mirror=True)
+    val_ds = SeededEpisodes(cfg, cfg.batch_size, per_class, seed + 1, mirror=True)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.reset()
     logger = MemoryLogger()
+    out = io.StringIO()
     t0 = time.perf_counter()
-    state = timg.train_gim_imgs(cfg, train_ds, val_ds, logger=logger, progress=False,
-                                device="cuda")
+    with contextlib.redirect_stdout(out):
+        state = timg.train_gim_imgs(cfg, train_ds, val_ds, logger=logger, progress=False,
+                                    device="cuda")
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
+    print("  loop says: " + "; ".join(out.getvalue().strip().splitlines()))
+    if "device-resident dataset" not in out.getvalue():  # device_data="auto", a uniform set
+        fail("loop: the VoxCeleb loop did not take the device loader")
     launches = check_launches(
         f"loop ({cfg.n_epochs} steps; at step 0 diagnostics, images and eval)", counters,
         {"train_step": cfg.n_epochs, "diag": 1, "eval_step": len(val_ds) // cfg.batch_size,
@@ -1351,6 +1484,440 @@ def run_eval_vox(seed: int, counters, vox_dir: str, vox_cfg) -> dict:
     return launches
 
 
+def flagship_per_step() -> dict:
+    """K1, K1b and K2 launches of one flagship train step."""
+    return {"adain_fwd": sum(ADAIN_SITES.values()), "adain_bwd": sum(ADAIN_SITES.values()),
+            "attention_core_fwd": sum(ATTENTION_SITES.values())}
+
+
+def feed_config(name: str, seed: int):
+    """The flagship (ImageGameConfig's defaults) or the VoxCeleb2 paper hparams."""
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+
+    if name == "flagship":
+        return ImageGameConfig(seed=seed)
+    return ImageGameConfig(img_size=64, img_channels=3, au_lr=1e-4, im_lr=1e-4,
+                           env_noise_mapping_lr=1e-6, reg_param=10.0, seed=seed)
+
+
+def feed_dataset(name: str, cfg, seed: int) -> SeededEpisodes:
+    """Phase 12's set of a config (FEED_SETS), ds_n_examples_per_cls episodes a class.
+    The flagship's host path is the Omniglot reader's batched gather
+    (``OmniglotGIMDataSet.sample_batch``); the VoxCeleb set is mirrored and its
+    host path assembles episode by episode, as ``ImgGIMDataSet`` does."""
+    from optimalstrategiesagainstgenerativeattacks_torch.data.episodic import OmniglotGIMDataSet
+
+    n_classes, per_class = FEED_SETS[name]
+    ds = SeededEpisodes(cfg, n_classes, per_class, seed, FEED_EXAMPLES_PER_CLASS,
+                        mirror=name == "vox")
+    if name == "flagship":
+        ds._stacked = ds.images
+        ds.sample_batch = OmniglotGIMDataSet.sample_batch.__get__(ds)
+    return ds
+
+
+def check_device_batches(name: str, loader, ds, seed: int) -> None:
+    """The device loader's batches: on the card, each image one frame of its
+    episode's class (flipped or not), the frames of an episode distinct, flips
+    seen where the set mirrors; each epoch's classes the numpy permutation's."""
+    take = ds.m + ds.n + ds.k
+    loader.set_epoch(0)
+    flipped = plain = 0
+    with contextlib.closing(iter(loader)) as it:
+        for _, batch in zip(range(2), it):
+            if any(v.device.type != torch.device(FEED_DEVICE).type for v in batch.values()):
+                fail(f"{name}: a device batch off the card")
+            e = FEED_CHECKED_EPISODES
+            cls = batch["class"][:e].long()
+            ep = torch.cat([batch[k][:e] for k in ("leaked_sample", "real_sample", "si_sample")],
+                           1).flatten(2)
+            if ep.shape[1] != take or batch["real_sample"].dtype != torch.uint8:
+                fail(f"{name}: device batch of {ep.shape[1]} images an episode")
+            frames = loader.data[cls]
+            same = (ep[:, :, None] == frames.flatten(2)[:, None]).all(-1)  # [e, take, t]
+            flip = (ep[:, :, None] == frames.flip(3).flatten(2)[:, None]).all(-1)
+            hits = same | flip
+            if not bool((hits.sum(-1) == 1).all()):
+                fail(f"{name}: a device-batch image is no single frame of its class")
+            frame = hits.int().argmax(-1).sort(1).values
+            if bool((frame[:, 1:] == frame[:, :-1]).any()):
+                fail(f"{name}: an episode repeats a frame")
+            flipped += int(flip.any(-1).sum())
+            plain += int(same.any(-1).sum())
+    if (ds.mirror and not (flipped and plain)) or (not ds.mirror and flipped):
+        fail(f"{name}: {flipped} flipped and {plain} plain images, mirror={ds.mirror}")
+    n = len(ds)
+    epochs = (0, 1) if name == "flagship" else (0,)
+    for epoch in epochs:
+        loader.set_epoch(epoch)
+        got = torch.cat([b["class"] for b in loader]).cpu().numpy()
+        want = np.random.default_rng((seed, epoch)).permutation(n) // ds.example_cnt_per_class
+        if got.dtype != np.int32 or not np.array_equal(got, want[:len(got)]):
+            fail(f"{name}: epoch {epoch}'s classes differ from the numpy permutation")
+    print(f"  device batches: {2 * FEED_CHECKED_EPISODES} episodes of {take} images, each a "
+          f"distinct frame of its class ({flipped} flipped, {plain} plain); epochs {epochs}: "
+          f"{len(loader)} batches each, classes equal to "
+          f"np.random.default_rng((seed, epoch)).permutation({n}) // {ds.example_cnt_per_class}")
+
+
+def check_prefetch_bytes(name: str, cfg, ds, seed: int) -> None:
+    """Batches through device_prefetch (side stream, pinned copies) equal the host
+    loader's byte for byte while the current stream is kept busy before each use."""
+    from optimalstrategiesagainstgenerativeattacks_torch.data.episodic import EpisodicBatchLoader
+    from optimalstrategiesagainstgenerativeattacks_torch.data.prefetch import device_prefetch
+
+    host = EpisodicBatchLoader(ds, cfg.batch_size, seed=seed, num_workers=cfg.num_workers)
+    host.set_epoch(5)
+    want = [b for _, b in zip(range(FEED_PREFETCH_CHECKED), host)]
+    host.set_epoch(5)
+    a = torch.randn(4096, 4096, device=FEED_DEVICE, dtype=torch.bfloat16)
+    out = torch.empty_like(a)
+    got = []
+    with contextlib.closing(device_prefetch(iter(host), FEED_DEVICE, cfg.prefetch_depth)) as it:
+        for _, batch in zip(range(FEED_PREFETCH_CHECKED), it):
+            for _ in range(100):  # ~20 ms on the stream that reads the batch next
+                torch.mm(a, a, out=out)
+            got.append({k: v.clone() for k, v in batch.items()})
+            del batch
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            on_device = g[k].device.type == torch.device(FEED_DEVICE).type
+            if not (on_device and np.array_equal(g[k].cpu().numpy(), w[k])):
+                fail(f"{name}: prefetched batch {i} {k} differs from the host loader's")
+    print(f"  device_prefetch (depth {cfg.prefetch_depth}, pinned, side stream): "
+          f"{FEED_PREFETCH_CHECKED} batches equal to the host loader's, byte for byte")
+
+
+def run_feed(name: str, seed: int, counters) -> SeededEpisodes:
+    """Phase 12 at one config: the loaders' checks, then train steps fed by the device
+    loader, the host loader with prefetch and with prefetch_depth 0, in the order
+    FEED_ORDER, the same steps each; every run's launches checked.  Returns the set."""
+    from optimalstrategiesagainstgenerativeattacks_torch.data.device_sampler import (
+        DeviceEpisodicLoader,
+    )
+    from optimalstrategiesagainstgenerativeattacks_torch.data.episodic import EpisodicBatchLoader
+    from optimalstrategiesagainstgenerativeattacks_torch.data.prefetch import device_prefetch
+    from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
+
+    cfg = feed_config(name, seed)
+    ds = feed_dataset(name, cfg, seed)
+    per_step = flagship_per_step() if name == "flagship" else VOX_LAUNCHES["train_step"]
+    n_steps = FEED_STEPS[name]
+    batch_mb = cfg.batch_size * (cfg.m + cfg.n + cfg.k) * cfg.img_size ** 2 * cfg.img_channels / 1e6
+    print(f"  {name}: {ds.images.shape[0]} classes x {ds.images.shape[1]} images of "
+          f"{cfg.img_size}x{cfg.img_size}x{cfg.img_channels}, {ds.images.nbytes / 1e6:.1f} MB "
+          f"uint8; {ds.example_cnt_per_class} episodes a class; batch {cfg.batch_size} "
+          f"episodes, {batch_mb:.2f} MB uint8; mirror {ds.mirror}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    device_loader = DeviceEpisodicLoader(ds, cfg.batch_size, seed=seed, device=FEED_DEVICE)
+    torch.cuda.synchronize()
+    print(f"  upload of the set: {time.perf_counter() - t0:.3f} s")
+    host_loader = EpisodicBatchLoader(ds, cfg.batch_size, seed=seed, num_workers=cfg.num_workers)
+    check_device_batches(name, device_loader, ds, seed)
+    check_prefetch_bytes(name, cfg, ds, seed)
+
+    device_loader.set_epoch(1)
+    with contextlib.closing(iter(device_loader)) as it:
+        next(it)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(FEED_ASSEMBLY_BATCHES):
+            next(it)
+        end.record()
+        end.synchronize()
+    print(f"  device loader alone: {start.elapsed_time(end) / FEED_ASSEMBLY_BATCHES:.4f} ms a "
+          f"batch (CUDA events over {FEED_ASSEMBLY_BATCHES} batches, back to back)")
+
+    device_loader.set_epoch(2)
+    state, _ = timg.train_gim_imgs_steps(cfg, iter(device_loader), 1, device=FEED_DEVICE)
+    rates = {kind: [] for kind in dict.fromkeys(FEED_ORDER)}
+    for run, kind in enumerate(FEED_ORDER):
+        loader = device_loader if kind == "device" else host_loader
+        loader.set_epoch(10 + run)
+        if kind == "device":
+            batches = iter(loader)
+        else:
+            depth = cfg.prefetch_depth if kind == "prefetch" else 0
+            batches = device_prefetch(iter(loader), FEED_DEVICE, depth)
+        with contextlib.closing(batches):
+            state, _ = timg.train_gim_imgs_steps(cfg, batches, 1, state=state)  # fills the pipeline
+            torch.cuda.synchronize()
+            for c in counters:
+                c.reset()
+            t0 = time.perf_counter()
+            state, history = timg.train_gim_imgs_steps(cfg, batches, n_steps, state=state)
+            step_s = (time.perf_counter() - t0) / n_steps
+        launches = {c.name: c.count for c in counters}
+        copies = launches.pop("adain_nhwc_copy")
+        want = {k: n * n_steps for k, n in per_step.items()}
+        if launches != want or copies:
+            fail(f"{name}, {kind} run: launches {launches}, expected {want}, {copies} copies")
+        if not all(math.isfinite(v) for m in history for v in m.values()):
+            fail(f"{name}, {kind} run: non-finite metrics")
+        rates[kind].append(1.0 / step_s)
+        print(f"  run {run + 1}, {kind}: {1.0 / step_s:.3f} steps/s ({step_s * 1e3:.2f} ms/step "
+              f"over {n_steps} steps after one); launches {launches}")
+    print(f"  {name} steps/s, mean of two runs each: " + ", ".join(
+        f"{kind} {statistics.mean(r):.3f} ({' / '.join(f'{x:.3f}' for x in r)})"
+        for kind, r in rates.items()) + f"  [{smi_line()}]")
+    del state, device_loader
+    torch.cuda.empty_cache()
+    return ds
+
+
+def seed_dirs_ok(outdir: str, seeds, ckpts: list) -> None:
+    """Each seed's directory holds its args.json (its own seed and outdir, no
+    multi-seed lists) and exactly ``ckpts``."""
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import load_args
+
+    for s in seeds:
+        seed_dir = os.path.join(outdir, f"seed_{s}")
+        args = load_args(seed_dir)
+        got = sorted(os.listdir(os.path.join(seed_dir, "ckpts")))
+        if (args["seed"] != s or args["outdir"] != seed_dir or {"seeds", "au_lrs", "im_lrs"} & set(args)
+                or got != ckpts):
+            fail(f"multi-seed: {seed_dir}: args seed {args['seed']}, checkpoints {got}")
+
+
+def timed_multisteps(ms, ds, n: int, epoch: int) -> tuple:
+    """Seconds a multi-seed step over ``n`` steps after one, each seed on its own
+    device loader over one resident copy of ``ds``, ending in the host's read of
+    the seeds' au_acc; returns (seconds, metrics, fake) of the last step."""
+    from optimalstrategiesagainstgenerativeattacks_torch.data.device_sampler import (
+        DeviceEpisodicLoader,
+    )
+    from optimalstrategiesagainstgenerativeattacks_torch.train import multiseed as tms
+
+    bs = ms.states[0].cfg.batch_size
+    first = DeviceEpisodicLoader(ds, bs, seed=ms.seeds[0], device=FEED_DEVICE)
+    loaders = [first] + [DeviceEpisodicLoader(ds, bs, seed=s, device=FEED_DEVICE, data=first.data)
+                         for s in ms.seeds[1:]]
+    for loader in loaders:
+        loader.set_epoch(epoch)
+    iters = [iter(loader) for loader in loaders]
+    tms.multiseed_train_step(ms, tms.stack_batches([next(it) for it in iters]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        metrics, fake = tms.multiseed_train_step(ms, tms.stack_batches([next(it) for it in iters]))
+    metrics["au_acc"].cpu()
+    return (time.perf_counter() - t0) / n, metrics, fake
+
+
+def run_multiseed(seed: int, counters, ds, flagship_step_s: float) -> dict:
+    """Phase 13 at the flagship: ``train_multiseed_gim_imgs`` with MULTISEED_SEEDS
+    seeds on ``ds`` (phase 12's flagship set), its launches, a seed's checkpoint
+    through the eval restore, then timed multi-steps.  Returns the launches."""
+    from optimalstrategiesagainstgenerativeattacks_torch.eval import authentication as teval
+    from optimalstrategiesagainstgenerativeattacks_torch.train import multiseed as tms
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+
+    outdir = os.path.join(BUILD_DIR, "chip_smoke_multiseed")
+    shutil.rmtree(outdir, ignore_errors=True)
+    cfg = ImageGameConfig(seed=seed)
+    seeds = [seed + i for i in range(MULTISEED_SEEDS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    ms, readings = tms.train_multiseed_gim_imgs(cfg, seeds, ds, outdir, MULTISEED_STEPS,
+                                                save_every=2, log_every=2, device=FEED_DEVICE)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {c.name: c.count for c in counters}
+    copies = launches.pop("adain_nhwc_copy")
+    want = {k: n * MULTISEED_SEEDS * MULTISEED_STEPS for k, n in flagship_per_step().items()}
+    print(f"  train_multiseed_gim_imgs: {len(seeds)} seeds x {MULTISEED_STEPS} steps in "
+          f"{loop_s:.2f} s (states, loaders, first-step warm-up, checkpoints); launches "
+          f"{launches}, expected {want} ({len(seeds)} seeds x {MULTISEED_STEPS} steps x "
+          f"{flagship_per_step()})")
+    if launches != want or copies:
+        fail(f"multi-seed: launches {launches}, expected {want}, {copies} layout copies")
+    if len(readings) != MULTISEED_STEPS // 2 or not all(np.isfinite(a).all() and a.shape == (
+            len(seeds),) for _, a in readings):
+        fail(f"multi-seed: au_acc readings {readings}")
+    seed_dirs_ok(outdir, seeds, [f"model_{s:08d}" for s in range(2, MULTISEED_STEPS + 1, 2)])
+
+    # the last seed's checkpoint through the eval CLI's restore, scored beside its state
+    seed_dir = os.path.join(outdir, f"seed_{seeds[-1]}")
+    ckpt, args = teval.get_exp_args_from_dir(seed_dir)
+    au = teval.get_gim_authenticator(ckpt, args, FEED_DEVICE)
+    episodes = [ds.sample_episode(i, np.random.default_rng(i)) for i in range(8)]
+    test, si = (np.stack([e[k] for e in episodes]).astype(np.float32) / 127.5 - 1.0
+                for k in ("real_sample", "si_sample"))
+    got = au.act(test_sample=test, si_sample=si)[0]
+    with torch.no_grad():
+        want_scores = ms.states[-1].au(*(torch.from_numpy(x).to(FEED_DEVICE).to(torch.bfloat16)
+                                         for x in (test, si)))
+    compare(f"eval restore of {os.path.basename(ckpt)} (seed {seeds[-1]}) against its state, "
+            f"scores of 8 episodes", torch.from_numpy(got), want_scores.float().cpu(),
+            *TOL[torch.bfloat16])
+
+    step_s, metrics, fake = timed_multisteps(ms, ds, MULTISEED_TIMED, epoch=50)
+    if tuple(fake.shape) != (len(seeds), cfg.batch_size, cfg.n, cfg.img_size, cfg.img_size,
+                             cfg.img_channels) or not (
+            torch.isfinite(fake).all() and fake.abs().max() <= 1.0):
+        fail(f"multi-seed: fake of shape {tuple(fake.shape)}, or non-finite or outside [-1, 1]")
+    if not all(bool(torch.isfinite(v).all()) and v.shape == (len(seeds),) for v in metrics.values()):
+        fail("multi-seed: non-finite metrics, or not one a seed")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  steady: {1.0 / step_s:.3f} multi-steps/s = {len(seeds) / step_s:.3f} seed-steps/s "
+          f"({step_s * 1e3:.2f} ms a multi-step over {MULTISEED_TIMED} after one; one seed's "
+          f"step in phase 6 of this call {flagship_step_s * 1e3:.2f} ms, x{len(seeds)} = "
+          f"{len(seeds) * flagship_step_s * 1e3:.2f} ms); peak memory {peak:.2f} GiB  "
+          f"[{smi_line()}]")
+    del ms, au
+    shutil.rmtree(outdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_multiseed_f32(seed: int, ds) -> None:
+    """Each seed of two f32 multi-seed steps against a single-seed run at that seed on
+    the same batches, on the card, with cuDNN's deterministic algorithms (its
+    default ones sum in a run-dependent order, and the first Adam steps turn
+    rounding into lr-sized moves): metrics within MULTISEED_TOL of max(1, |ref|)
+    (accuracies 2 / B); parameters within MULTISEED_TOL of each tensor's max|ref|
+    where the gradient is above 1e-6 of the player's largest, else 2 lr a step,
+    and at most MULTISEED_FLIPS entries a tensor held to 2 lr a step only."""
+    import dataclasses
+
+    from optimalstrategiesagainstgenerativeattacks_torch.data.device_sampler import (
+        DeviceEpisodicLoader,
+    )
+    from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
+    from optimalstrategiesagainstgenerativeattacks_torch.train import multiseed as tms
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+
+    cfg = ImageGameConfig(seed=seed, compute_dtype="float32")
+    seeds, n_steps = [seed, seed + 1], 2
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    batches = []
+    for s in seeds:
+        loader = DeviceEpisodicLoader(ds, cfg.batch_size, seed=s, device=FEED_DEVICE)
+        loader.set_epoch(3)
+        batches.append([b for _, b in zip(range(n_steps), loader)])
+    ms = tms.create_multiseed_state(cfg, seeds, FEED_DEVICE)
+    history = [tms.multiseed_train_step(ms, tms.stack_batches([b[t] for b in batches]))[0]
+               for t in range(n_steps)]
+    for i, s in enumerate(seeds):
+        seed_cfg = dataclasses.replace(cfg, seed=s)
+        single = timg.create_state(seed_cfg, *timg.build_models(seed_cfg), s, FEED_DEVICE)
+        single_history = [timg.train_step(single, b)[0] for b in batches[i]]
+        worst, exact, flips = [], True, 0
+        for t, (got, want) in enumerate(zip(history, single_history)):
+            for k, ref in want.items():
+                ref, g = ref.item(), got[k][i].item()
+                limit = 2.0 / cfg.batch_size if "acc" in k else MULTISEED_TOL * max(1.0, abs(ref))
+                if not (math.isfinite(g) and abs(g - ref) <= limit):
+                    fail(f"multi-seed f32, seed {s}, step {t}: {k} {g} against {ref}")
+                worst.append((abs(g - ref) / limit, k))
+                exact &= g == ref
+        for player, lrs in (("au", (cfg.au_lr,)), ("im", (cfg.im_lr, cfg.env_noise_mapping_lr))):
+            mine = dict(getattr(ms.states[i], player).named_parameters())
+            ref_params = dict(getattr(single, player).named_parameters())
+            opt = getattr(single, f"opt_{player}")
+            grads = {k: opt.state[p]["exp_avg"] for k, p in ref_params.items()}
+            floor = 1e-6 * max(g.abs().max().item() for g in grads.values())
+            for k, want in ref_params.items():
+                err = (mine[k] - want).detach().abs()
+                lr = lrs[1] if k.startswith("env_noise_mapper.") else lrs[0]
+                limit = MULTISEED_TOL * want.abs().max().item()
+                big = (grads[k].abs() > floor) & (err > limit)
+                flips += int(big.sum())
+                if int(big.sum()) > MULTISEED_FLIPS or not bool((err <= max(
+                        limit, 2 * lr * n_steps)).all()):
+                    fail(f"multi-seed f32, seed {s}: {player} {k} off by {err.max().item():.3e} "
+                         f"({int(big.sum())} entries with a gradient above the floor)")
+                worst.append((min(err.max().item(), limit) / limit, k))
+                exact &= bool((err == 0).all())
+        print(f"  f32, seed {s}: {n_steps} multi-seed steps against a single-seed run on the "
+              f"same batches: {len(worst)} metrics and parameters, worst error / limit "
+              f"{max(worst)[0]:.3f} ({max(worst)[1]}); entries held to 2 lr a step only: "
+              f"{flips}; bit-equal: {exact}")
+        del single
+    del ms
+    torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+
+
+def run_multiseed_small(seed: int, counters) -> None:
+    """The multi-seed CLI's own defaults (the head-to-head studies' config) with
+    SMALL_SEEDS seeds: a single-seed step's launches and steps/s, then
+    ``train_multiseed_gim_imgs`` (launches: seeds x steps x one step's) and timed
+    multi-steps."""
+    from optimalstrategiesagainstgenerativeattacks_torch import train_multiseed_gim_on_imgs as tcli
+    from optimalstrategiesagainstgenerativeattacks_torch.data.device_sampler import (
+        DeviceEpisodicLoader,
+    )
+    from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
+    from optimalstrategiesagainstgenerativeattacks_torch.train import multiseed as tms
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+
+    outdir = os.path.join(BUILD_DIR, "chip_smoke_multiseed_small")
+    shutil.rmtree(outdir, ignore_errors=True)
+    seeds = [seed + i for i in range(SMALL_SEEDS)]
+    args = tcli.build_parser().parse_args(
+        ["-o", outdir, "--dataset_root", SeededEpisodes.root, "--seeds", *map(str, seeds)])
+    cfg = ImageGameConfig.from_dict(vars(args))
+    ds = SeededEpisodes(cfg, *FEED_SETS["flagship"], seed + 11, FEED_EXAMPLES_PER_CLASS)
+    print(f"  config (the CLI's defaults): B={cfg.batch_size} img={cfg.img_size}x{cfg.img_size}x"
+          f"{cfg.img_channels} style={cfg.style_dim} m={cfg.m} n={cfg.n} k={cfg.k} "
+          f"{cfg.compute_dtype} lr {cfg.au_lr}/{cfg.im_lr}/{cfg.env_noise_mapping_lr}; "
+          f"{len(seeds)} seeds; a set of {ds.images.shape[0]} x {ds.images.shape[1]}")
+
+    single = timg.create_state(cfg, *timg.build_models(cfg), seed, FEED_DEVICE)
+    loader = DeviceEpisodicLoader(ds, cfg.batch_size, seed=seed, device=FEED_DEVICE)
+    it = iter(loader)
+    timg.train_step(single, next(it))
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    timg.train_step(single, next(it))
+    per_step = {c.name: c.count for c in counters}
+    per_step.pop("adain_nhwc_copy")
+    t0 = time.perf_counter()
+    for _ in range(SMALL_TIMED):
+        metrics, _ = timg.train_step(single, next(it))
+    metrics["au_acc"].cpu()
+    single_s = (time.perf_counter() - t0) / SMALL_TIMED
+    it.close()
+    del single, loader, it
+
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    ms, readings = tms.train_multiseed_gim_imgs(cfg, seeds, ds, outdir, SMALL_STEPS,
+                                                save_every=args.save_every, log_every=5,
+                                                args=vars(args), device=FEED_DEVICE)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {c.name: c.count for c in counters}
+    copies = launches.pop("adain_nhwc_copy")
+    want = {k: n * len(seeds) * SMALL_STEPS for k, n in per_step.items()}
+    print(f"  one single-seed step launches {per_step}; train_multiseed_gim_imgs: "
+          f"{SMALL_STEPS} steps in {loop_s:.2f} s, launches {launches}, expected {want}")
+    if launches != want or copies:
+        fail(f"multi-seed (CLI config): launches {launches}, expected {want}")
+    if not all(np.isfinite(a).all() for _, a in readings):
+        fail("multi-seed (CLI config): non-finite au_acc")
+    seed_dirs_ok(outdir, seeds, [f"model_{SMALL_STEPS:08d}"])
+    step_s, metrics, _ = timed_multisteps(ms, ds, SMALL_TIMED, epoch=50)
+    if not all(bool(torch.isfinite(v).all()) for v in metrics.values()):
+        fail("multi-seed (CLI config): non-finite metrics")
+    print(f"  steady: {1.0 / step_s:.3f} multi-steps/s = {len(seeds) / step_s:.3f} seed-steps/s "
+          f"({step_s * 1e3:.2f} ms a multi-step); one seed alone {1.0 / single_s:.3f} steps/s "
+          f"({single_s * 1e3:.2f} ms a step, x{len(seeds)} = "
+          f"{len(seeds) * single_s * 1e3:.2f} ms)  [{smi_line()}]")
+    del ms
+    shutil.rmtree(outdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1398,8 +1965,11 @@ def main() -> None:
     summarise(results, times)
 
     print(f"[4/{N_PHASES}] slice parity: flagship widths, f32, TF32 off, B=2, fixed z "
-          f"(tol {SLICE_TOL} x max(1, max|ref|))", flush=True)
+          f"(tol {SLICE_TOL} x max(1, max|ref|)); then every SN conv site of a bf16 step of "
+          f"{', '.join(conv_site_configs(args.seed))} against f32 without cuDNN (tol "
+          f"{CONV_TOL} x max|ref|)", flush=True)
     check_slice(args.seed)
+    check_conv_sites(args.seed)
 
     print(f"[5/{N_PHASES}] R1 parity: VoxCeleb widths (64x64x3, style 512), f32, TF32 off, B=2 "
           f"(penalty tol {R1_TOL} x max|ref|; each gradient {R1_TOL} x its max|ref| + "
@@ -1457,6 +2027,22 @@ def main() -> None:
     print(f"  steady steps/s: with img_att {1.0 / img_att_step_s:.3f}, without (phase 6, this "
           f"call) {1.0 / flagship_step_s:.3f}; img_att adds "
           f"{(img_att_step_s - flagship_step_s) * 1e3:.2f} ms/step  [{smi_line()}]")
+
+    print(f"[12/{N_PHASES}] feed: the device loader, the host loader with prefetch depth 2 and "
+          f"with depth 0 feeding train steps at the flagship and VoxCeleb sizes "
+          f"(runs {' '.join(FEED_ORDER)})", flush=True)
+    feed_sets = {name: run_feed(name, args.seed, counters) for name in FEED_SETS}
+
+    print(f"[13/{N_PHASES}] multiseed: train_multiseed_gim_imgs at the flagship, {MULTISEED_SEEDS} "
+          f"seeds; f32 multi-seed steps against single-seed runs (metrics {MULTISEED_TOL} x "
+          f"max(1, |ref|), accuracies 2/B; parameters {MULTISEED_TOL} x max|ref|, 2 lr a step "
+          f"where the gradient is rounding noise); the CLI's config with {SMALL_SEEDS} seeds",
+          flush=True)
+    for name, n in run_multiseed(args.seed, counters, feed_sets["flagship"],
+                                 flagship_step_s).items():
+        results[name]["multiseed_launches"] = n
+    check_multiseed_f32(args.seed, feed_sets["flagship"])
+    run_multiseed_small(args.seed, counters)
 
     print(smi_line())
     print(json.dumps({"kernels": list(results.values())}))

@@ -20,6 +20,9 @@ dataset and a seed give the same batches as the JAX loader:
     baseline's classification training.
   * ``EpisodicBatchLoader`` assembles whole batches, with a thread pool for
     the disk-backed dataset.
+  * ``stacked_cache()`` of either episodic dataset: every image in one uint8
+    ``[n_classes, t, H, W, C]`` array when the classes' counts agree, for
+    ``data/device_sampler.py:DeviceEpisodicLoader``.
 
 PIL is imported only where an image is decoded.
 """
@@ -124,6 +127,23 @@ class ImgGIMDataSet:
     def __len__(self) -> int:
         return self.n_classes * self.example_cnt_per_class
 
+    def stacked_cache(self, num_workers: int = 8) -> Optional[np.ndarray]:
+        """Every image decoded once into one uint8 [n_classes, t, H, W, C] array,
+        for device-resident sampling (``data/device_sampler.py``); None when the
+        classes' image counts differ.  No mirror here: the device sampler flips."""
+        if getattr(self, "_stacked_cache", None) is not None:
+            return self._stacked_cache
+        if len({len(p) for p in self._class_img_paths}) != 1:
+            return None
+
+        def load_class(paths):
+            return np.stack([load_image(p, self.img_size, self.img_mode) for p in paths], axis=0)
+
+        with ThreadPoolExecutor(max_workers=max(1, num_workers)) as ex:
+            per_class = list(ex.map(load_class, self._class_img_paths))
+        self._stacked_cache = np.stack(per_class, axis=0)
+        return self._stacked_cache
+
     def _split_indices(self, n_avail: int, rng: np.random.Generator):
         sampled = rng.choice(n_avail, size=self.m + self.n + self.si, replace=False)
         return (
@@ -221,6 +241,11 @@ class OmniglotGIMDataSet:
         # the loader assemble a batch with a single fancy-indexed gather
         counts = {d.shape[0] for d in self.data}
         self._stacked = np.stack(self.data, axis=0) if len(counts) == 1 else None
+
+    def stacked_cache(self) -> Optional[np.ndarray]:
+        """uint8 [n_classes, t, H, W, 1] cache for device-resident sampling
+        (None when the classes' image counts differ)."""
+        return self._stacked
 
     def sample_batch(self, indices, seed: int) -> Dict[str, np.ndarray]:
         """Assemble a whole batch in one vectorised gather (the loader's fast path)."""

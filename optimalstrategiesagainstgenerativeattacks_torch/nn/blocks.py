@@ -104,7 +104,30 @@ class SNConv(nn.Module):
         b = self.bias
         if self.dtype is not None:
             x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
-        return F.conv2d(x, w, b, padding=self.padding)
+        return conv2d(x, w, b, self.padding)
+
+
+def conv2d(x, w, b, padding: int):
+    """``F.conv2d``, except on the card for one input and one output channel."""
+    if x.is_cuda and w.shape[:2] == (1, 1):
+        return conv_one_channel(x, w, b, padding)
+    return F.conv2d(x, w, b, padding=padding)
+
+
+def conv_one_channel(x, w, b, padding: int):
+    """``F.conv2d`` of one input channel to one output channel, as im2col and a matmul.
+
+    cuDNN 9.22 (torch 2.11, cu128) on an H100 gets bf16 convs of one channel
+    to one channel wrong: the flagship env decoder's last conv ([640, 1, 32,
+    32] in, 3x3) comes out off by as much as the output's own size, and NaN
+    once other convs have run.  The same sums through ``F.unfold`` and one
+    matmul (cuBLAS) are right up to bf16 rounding, forward and backward.
+    """
+    k = w.shape[-1]
+    h, wd = (x.shape[2] + 2 * padding - k + 1, x.shape[3] + 2 * padding - k + 1)
+    cols = F.unfold(x, k, padding=padding)  # [B, k*k, h*wd]
+    out = torch.matmul(w.reshape(1, -1), cols) + b.reshape(1, 1, 1)
+    return out.reshape(x.shape[0], 1, h, wd)
 
 
 class InstanceNorm(nn.Module):

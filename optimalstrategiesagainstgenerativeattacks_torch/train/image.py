@@ -26,15 +26,17 @@ the whole batch at once: the reference's ``au_microbatch`` is a memory policy
 for a 16 GB TPU and is not carried.
 
 ``train_gim_imgs`` is the reference's loop (its ``train_gim_imgs:357-447``,
-as the JAX package's ``train_gim_imgs`` ports it): epochs over an
-``EpisodicBatchLoader``, the same scalar tags and cadences, checkpoints,
-image grids, eval over the val set, and a save on KeyboardInterrupt or
-PermissionError.  Per-step metrics stay on the device in a [log_every, K]
+as the JAX package's ``train_gim_imgs`` ports it): epochs over the loader
+that ``cfg.device_data`` picks (``train_loader``: the dataset resident on the
+device, or the host loader behind a prefetch thread), the same scalar tags
+and cadences, checkpoints, image grids, eval over the val set, and a save on
+KeyboardInterrupt or PermissionError.  Per-step metrics stay on the device in a [log_every, K]
 buffer that reaches the host in one transfer per flush.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import time
@@ -43,7 +45,9 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from optimalstrategiesagainstgenerativeattacks_torch.data.device_sampler import DeviceEpisodicLoader
 from optimalstrategiesagainstgenerativeattacks_torch.data.episodic import EpisodicBatchLoader
+from optimalstrategiesagainstgenerativeattacks_torch.data.prefetch import device_prefetch
 from optimalstrategiesagainstgenerativeattacks_torch.models import image as imodels
 from optimalstrategiesagainstgenerativeattacks_torch.nn.init import init_module
 from optimalstrategiesagainstgenerativeattacks_torch.ops.spectral import power_iterate
@@ -59,6 +63,7 @@ from optimalstrategiesagainstgenerativeattacks_torch.train.losses import (
 )
 from optimalstrategiesagainstgenerativeattacks_torch.train.state import GameState, adam_step
 from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+from optimalstrategiesagainstgenerativeattacks_torch.utils.rng import noise_generator
 
 METRIC_KEYS = (
     "im_loss",
@@ -326,18 +331,6 @@ def _to_01(img_sample: np.ndarray) -> np.ndarray:
     return (np.clip(np.asarray(img_sample, np.float32), -1, 1) + 1.0) / 2.0
 
 
-def noise_generator(device, *key: int) -> torch.Generator:
-    """A fresh generator on ``device`` seeded from the non-negative integers ``key``.
-
-    The loop's sampling and eval noise depends on these indices only, as the
-    JAX loop's does on its ``fold_in`` chain of a fixed key: so a resumed run
-    draws the noise that an uninterrupted one draws (the bits differ from
-    JAX's).
-    """
-    seed = int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0]) >> 1
-    return torch.Generator(device=device).manual_seed(seed)
-
-
 def sample_and_save_imgs(logger, state: GameState, ds, ds_prefix: str, indices, key: int,
                          dbg: bool = False) -> None:
     """Leaked and impersonator (and, with ``dbg``, real and si) grids for chosen
@@ -382,15 +375,40 @@ def run_eval(state: GameState, ds, logger, batch_size: int, key: int) -> dict:
     return means
 
 
+def train_loader(cfg: ImageGameConfig, train_ds, batch_size: int, device):
+    """The training loader that ``cfg.device_data`` picks, as the JAX loop picks it.
+
+    "auto" stages the dataset on ``device`` (``DeviceEpisodicLoader``) when it
+    has a uniform ``stacked_cache()``; "on" requires that; "off", or no such
+    cache, takes the host's ``EpisodicBatchLoader``, whose batches the loop
+    copies through ``device_prefetch``.
+    """
+    if cfg.device_data not in ("auto", "on", "off"):
+        raise ValueError(f"device_data {cfg.device_data!r}: auto, on or off")
+    cache = None
+    if cfg.device_data != "off" and hasattr(train_ds, "stacked_cache"):
+        cache = train_ds.stacked_cache()
+    if cache is not None:
+        print(f"device-resident dataset: {cache.nbytes / 1e6:.0f} MB uint8 staged to "
+              f"{torch.device(device)} ({cache.shape[0]} classes x {cache.shape[1]})")
+        return DeviceEpisodicLoader(train_ds, batch_size=batch_size, seed=cfg.seed, device=device)
+    if cfg.device_data == "on":
+        raise ValueError("device_data='on' but the dataset has no uniform stacked cache "
+                         "(unequal images per class?)")
+    print(f"host loader, prefetch depth {cfg.prefetch_depth}")
+    return EpisodicBatchLoader(train_ds, batch_size=batch_size, shuffle=True, drop_last=True,
+                               num_workers=cfg.num_workers, seed=cfg.seed)
+
+
 def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress: bool = True,
                    device="cuda") -> GameState:
     """Full image-game training (the reference's ``train_gim_imgs:357-447``).
 
     Epochs ``[last_epoch, n_epochs)`` of ``len(loader)`` steps (50 with
-    ``cfg.dbg``).  After the step that makes the state's step ``gs``:
-    scalars flush when gs % log_every == 0, encoder diagnostics when
-    gs % log_enc_every == 0, a checkpoint when gs % save_every == 0, image
-    grids when gs % save_imgs_every == 0 and an eval over ``val_ds`` when
+    ``cfg.dbg``) over the loader of ``train_loader``.  After the step that
+    makes the state's step ``gs``: scalars flush when gs % log_every == 0,
+    encoder diagnostics when gs % log_enc_every == 0, a checkpoint when
+    gs % save_every == 0, image grids when gs % save_imgs_every == 0 and an eval over ``val_ds`` when
     gs % eval_every == 0 (so all at gs = 0).  A last checkpoint is written at
     the end, on KeyboardInterrupt (then it returns) and on PermissionError
     (then it goes on with the next epoch).  Sampling and eval draw their
@@ -422,8 +440,7 @@ def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress
     val_bs = min(cfg.batch_size, len(val_ds))
     train_eval_indices = list(range(0, len(train_ds), max(1, len(train_ds) // 10)))
     val_eval_indices = list(range(0, len(val_ds), max(1, len(val_ds) // 10)))
-    loader = EpisodicBatchLoader(train_ds, batch_size=train_bs, shuffle=True, drop_last=True,
-                                 num_workers=cfg.num_workers, seed=cfg.seed)
+    loader = train_loader(cfg, train_ds, train_bs, device)
     sample_key = cfg.seed + 17
 
     log_buf = torch.zeros((max(cfg.log_every, 1), len(METRIC_KEYS)), device=device)
@@ -486,30 +503,36 @@ def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress
         nonlocal buf_count
         loader.set_epoch(ep)
         num_iters = 50 if cfg.dbg else len(loader)
-        for batch in itertools.islice(loader, num_iters):
-            metrics, fake = train_step(state, batch)
-            # rows [0:buf_count] are the steps since the last flush; a buffer
-            # full before its cadence (a resume off the cadence) flushes now
-            if buf_count >= cfg.log_every:
-                flush_log(state.step)
-            log_buf[buf_count] = torch.stack([metrics[k].float() for k in METRIC_KEYS])
-            buf_count += 1
-            perf["steps"] += 1
-            gs = state.step
-            if gs % cfg.log_every == 0:
-                flush_log(gs)
-                log_throughput(gs)
-            if gs % cfg.log_enc_every == 0:
-                log_diag(batch, fake, gs)
-            if gs % cfg.save_every == 0:
-                checkpoint_io.save(state, gs, last_epoch=ep)
-            if gs % cfg.save_imgs_every == 0:
-                sample_and_save_imgs(logger, state, train_ds, "train", train_eval_indices,
-                                     sample_key, cfg.dbg)
-                sample_and_save_imgs(logger, state, val_ds, "val", val_eval_indices,
-                                     sample_key, cfg.dbg)
-            if gs % cfg.eval_every == 0:
-                run_eval(state, val_ds, logger, val_bs, sample_key)
+        if isinstance(loader, DeviceEpisodicLoader):
+            batches = iter(loader)  # already on the device
+        else:
+            batches = device_prefetch(iter(loader), device, depth=cfg.prefetch_depth)
+        # closing stops the prefetch thread when the epoch ends early (dbg, an error)
+        with contextlib.closing(batches):
+            for batch in itertools.islice(batches, num_iters):
+                metrics, fake = train_step(state, batch)
+                # rows [0:buf_count] are the steps since the last flush; a buffer
+                # full before its cadence (a resume off the cadence) flushes now
+                if buf_count >= cfg.log_every:
+                    flush_log(state.step)
+                log_buf[buf_count] = torch.stack([metrics[k].float() for k in METRIC_KEYS])
+                buf_count += 1
+                perf["steps"] += 1
+                gs = state.step
+                if gs % cfg.log_every == 0:
+                    flush_log(gs)
+                    log_throughput(gs)
+                if gs % cfg.log_enc_every == 0:
+                    log_diag(batch, fake, gs)
+                if gs % cfg.save_every == 0:
+                    checkpoint_io.save(state, gs, last_epoch=ep)
+                if gs % cfg.save_imgs_every == 0:
+                    sample_and_save_imgs(logger, state, train_ds, "train", train_eval_indices,
+                                         sample_key, cfg.dbg)
+                    sample_and_save_imgs(logger, state, val_ds, "val", val_eval_indices,
+                                         sample_key, cfg.dbg)
+                if gs % cfg.eval_every == 0:
+                    run_eval(state, val_ds, logger, val_bs, sample_key)
 
     epoch_iter = range(last_epoch, cfg.n_epochs)
     if progress:

@@ -74,6 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--log_enc_every", type=int, default=500,
                         help="encoder-diagnostic cadence (the reference's tb_log_enc_every)")
     parser.add_argument("--compute_dtype", default="bfloat16", help="bfloat16 or float32")
+    parser.add_argument("--device_data", default="auto", choices=["auto", "on", "off"],
+                        help="stage the whole dataset on the device and sample episodes "
+                             "there (no image bytes cross to the device per step); 'auto' "
+                             "uses it when every class has the same image count")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda runs the hand-written kernels on the GPU; cpu runs "
                              "their plain versions")

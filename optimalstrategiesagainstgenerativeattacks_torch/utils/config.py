@@ -125,6 +125,13 @@ class ImageGameConfig:
     log_every: int = 100  # scalar flush cadence (the reference's tb_log_every)
     log_enc_every: int = 500  # encoder-diagnostic cadence (tb_log_enc_every)
     compute_dtype: str = "bfloat16"
+    prefetch_depth: int = 2  # batches the host loader's copy thread stages ahead
+    # device-resident episodic sampling (data/device_sampler.py): stage the
+    # whole uniform-count dataset on the device once and assemble every batch
+    # there, so no image bytes cross to the device per step.  'auto' uses it
+    # whenever the dataset has a uniform stacked cache; 'on' requires it;
+    # 'off' keeps the host loader (with data/prefetch.py's copy thread)
+    device_data: str = "auto"
 
     @classmethod
     def from_dict(cls, d: dict) -> "ImageGameConfig":

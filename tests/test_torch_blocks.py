@@ -6,6 +6,10 @@ random values, and the weights are carried into the port.  Outputs rtol 1e-4
 A conv bias that feeds an instance norm or AdaIN has an exactly zero
 gradient (the norm removes any per-channel constant); both sides then hold
 rounding noise, which must stay below 1e-5.
+
+``conv_one_channel``, the card's path for a conv of one channel to one
+channel (cuDNN gets those wrong in bf16), equals ``F.conv2d`` in f64,
+forward and backward, to 1e-12.
 """
 
 import jax
@@ -90,3 +94,18 @@ def test_block_matches_flax_forward_and_grads(name):
             assert max(np.abs(g).max(), np.abs(want_param_grads[k]).max()) < 1e-5, k
             continue
         np.testing.assert_allclose(g, want_param_grads[k], rtol=1e-3, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("shape,k,padding", [((6, 1, 16, 16), 3, 1), ((4, 1, 8, 8), 9, 4),
+                                             ((3, 1, 5, 7), 1, 0)])
+def test_conv_one_channel_equals_conv2d(shape, k, padding):
+    gen = torch.Generator().manual_seed(k)
+    args = [torch.randn(s, generator=gen, dtype=torch.float64, requires_grad=True)
+            for s in (shape, (1, 1, k, k), (1,))]
+    got = tblocks.conv_one_channel(*args, padding)
+    want = torch.nn.functional.conv2d(*args, padding=padding)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    cot = torch.randn(want.shape, generator=gen, dtype=torch.float64)
+    for g, w in zip(torch.autograd.grad(got, args, cot), torch.autograd.grad(want, args, cot)):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-12)

@@ -27,6 +27,12 @@ authenticator (the penalty, and the loss's parameter gradients; 32x32x3,
 style 64, f32) to the CPU's at 1e-3 of each tensor's largest entry plus
 1e-6 of the player's, as ``chip_smoke.py`` phase 5 holds it at the
 VoxCeleb widths.
+
+A spectrally normalised conv of one channel to one channel runs as im2col
+and a matmul on the card (``nn/blocks.py:conv_one_channel``): cuDNN 9.22
+computes the flagship env decoder's last conv ([640, 1, 32, 32], 3x3) wrongly
+in bf16.  At that site, output and both gradients within 2e-2 of the
+largest entry of f32 without cuDNN (a few bf16 roundings of a 9-term sum).
 """
 
 import pytest
@@ -283,3 +289,22 @@ def test_r1_through_the_kernels_matches_the_cpu(gen, no_tf32):
     player = max(w.abs().max().item() for w in grads_cpu)
     for a, w in zip(grads_card, grads_cpu):
         assert (a - w).abs().max() <= 1e-3 * w.abs().max() + 1e-6 * player
+
+
+def test_one_channel_conv_at_the_flagship_env_decoder_site(gen):
+    import torch.nn.functional as F
+
+    from optimalstrategiesagainstgenerativeattacks_torch.nn.blocks import conv2d
+
+    x = _rand(gen, 640, 1, 32, 32, dtype=torch.bfloat16).requires_grad_(True)
+    w = (_rand(gen, 1, 1, 3, 3) / 3).to(torch.bfloat16).requires_grad_(True)
+    b = _rand(gen, 1, dtype=torch.bfloat16)
+    out = conv2d(x, w, b, 1)
+    cot = _rand(gen, *out.shape)
+    got = (out, *torch.autograd.grad(out, (x, w), cot.to(out.dtype)))
+    xf, wf = (t.detach().float().requires_grad_(True) for t in (x, w))
+    with torch.backends.cudnn.flags(enabled=False):
+        ref = F.conv2d(xf, wf, b.float(), padding=1)
+        want = (ref, *torch.autograd.grad(ref, (xf, wf), cot))
+    for a, r in zip(got, want):
+        assert (a.float() - r).abs().max().item() <= 2e-2 * r.abs().max().item()

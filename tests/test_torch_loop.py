@@ -45,7 +45,7 @@ from test_torch_support import small_cfg, uint8_batch
 
 torch.set_num_threads(1)
 
-TPU_ONLY_FLAGS = {"--device_data", "--unroll_encoder_pair", "--remat_encoders",
+TPU_ONLY_FLAGS = {"--unroll_encoder_pair", "--remat_encoders",
                   "--au_microbatch", "--adain_scan_unroll", "--split_step", "--stack_opt"}
 IMAGES_PER_CLASS = 6
 

@@ -155,6 +155,10 @@ def test_port_imports_with_jax_blocked():
         "import optimalstrategiesagainstgenerativeattacks_torch.models.gaussian\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.theory.game_value as v\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.train_gim_on_gaussians\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.data.device_sampler\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.data.prefetch\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.train.multiseed\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.train_multiseed_gim_on_imgs\n"
         "assert round(v.game_value_mnk(1, 5, 10, 10), 6) == 0.921131\n"
         "g.train_step(g.create_state(g.GaussianGameConfig(batch_size=8, src_dim=2), 'cpu'))\n"
         "from optimalstrategiesagainstgenerativeattacks_torch.eval.scorer import roc_auc\n"
