@@ -85,6 +85,22 @@ Phases (each prints its lines; the first failure exits non-zero):
               seed on the same batches; then the multi-seed CLI's default
               config (img 16, style 64, B16) with 3 seeds: its launches and
               steps/s beside one seed's.
+ 14. inventory: the legacy AdaIN blocks at the flagship generator's widths
+              (5 AdaResBlock at 4x4x512, AdaResBlockUp 512 -> 256 -> 128 -> 1,
+              B' = 640, bf16): steps of power iteration, forward, backward
+              and Adam, finite, K1 16 and K1b 16 launches a step, K2 none,
+              steps/s; the same stack in f32 on the card against the CPU
+              in f64 (output and parameter gradients), and grad2_penalty
+              through it with its parameter gradients (AdaIN's double
+              backward: K1b for the first order); the StyleGAN kit at 32x32,
+              style 512 (bf16 B = 640, finite, no kernel; f32 outputs on the
+              card against the CPU in f64 with the same noise injected, the
+              gradients printed beside the CPU's f32 ones and beside f64
+              with the parameters moved by one f32 rounding;
+              blur3x3 in bf16 against f32 without cuDNN); the set
+              stats, ResMLP/ResMLP2, pixel_norm, the pools, freeze + Adam and
+              accumulate, f32 card against CPU at width 512
+              (``inventory_launches``: the legacy stack's bf16 run).
 The second-to-last line is a JSON summary of the kernels, with times per
 flagship step, per VoxCeleb step and per gim-vs-gim eval batch of each
 config (sum over sites of ms x launches), and the launches of each run
@@ -235,7 +251,7 @@ SMALL_SEEDS, SMALL_STEPS, SMALL_TIMED = 3, 10, 10
 MULTISEED_TOL = 1e-4
 MULTISEED_FLIPS = 4  # a tensor's entries whose Adam step may take the other sign (as in the
 # R1 train-step test of the CPU suite)
-N_PHASES = 13
+N_PHASES = 14
 
 # NVIDIA H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -821,6 +837,7 @@ def kernel_results() -> dict:
         name: {"name": name, "route": route, "source": src, "replaces": rep,
                "launches": 0, "vox_launches": 0, "eval_launches": 0, "vox_eval_launches": 0,
                "gaussian_launches": 0, "img_att_launches": 0, "multiseed_launches": 0,
+               "inventory_launches": 0,
                **{f"{p}launches_per_batch_by_pairing": {pair: n[name] for pair, n in table.items()}
                   for p, table in pairings.items()},
                "max_abs_err": 0.0,
@@ -1918,6 +1935,407 @@ def run_multiseed_small(seed: int, counters) -> None:
     torch.cuda.empty_cache()
 
 
+# ---- phase 14: the rest of the inventory
+
+LEGACY_B = 640  # B' of the flagship generator: 128 episodes x n = 5
+LEGACY_STEPS = 10  # timed bf16 steps of the legacy AdaIN stack, after one warm-up step
+INVENTORY_CHECK_B = 8  # B' of the f32 card-against-CPU checks at the full widths
+SG_B, SG_STYLE = 640, 512
+BLUR_SITES = ((512, 8), (256, 16), (128, 32), (1, 32))  # (C, H = W) of blur3x3 at B' = 640
+REST_B = 128  # sets of the authenticator's width (512) in the last checks
+REST_LR = 1e-4
+
+
+def legacy_widths() -> list:
+    """The channel count of each AdaIN of the legacy stack, in order: 5 res blocks x 2,
+    then each up block's input and output."""
+    up = [(512, 256), (256, 128), (128, 1)]
+    return [512] * 10 + [w for pair in up for w in pair]
+
+
+class LegacyStack(torch.nn.Module):
+    """The flagship generator's AdaIN sites on the legacy blocks: 5 ``AdaResBlock`` at
+    4x4x512, then ``AdaResBlockUp`` 512 -> 256 -> 128 -> 1 (the last with 9x9 convs,
+    padding 4); each AdaIN's [B', 2C] style is a ``Dense`` of one 512-wide style."""
+
+    def __init__(self, dtype):
+        from optimalstrategiesagainstgenerativeattacks_torch.nn.blocks import (
+            AdaResBlock,
+            AdaResBlockUp,
+            Dense,
+        )
+
+        super().__init__()
+        self.res = torch.nn.ModuleList(AdaResBlock(512, dtype=dtype) for _ in range(5))
+        self.up = torch.nn.ModuleList(
+            AdaResBlockUp(ci, co, dtype=dtype, **(dict(conv_size=9, padding=4) if co == 1 else {}))
+            for ci, co in ((512, 256), (256, 128), (128, 1)))
+        self.styles = torch.nn.ModuleList(Dense(512, 2 * w, dtype=dtype) for w in legacy_widths())
+
+    def forward(self, x, style):
+        s = [m(style) for m in self.styles]
+        for i, blk in enumerate([*self.res, *self.up]):
+            x = blk(x, s[2 * i], s[2 * i + 1])
+        return x
+
+
+def legacy_inputs(b: int, gen: torch.Generator, dtype) -> tuple:
+    x = torch.randn(b, 512, 4, 4, generator=gen).to(dtype)
+    return x.contiguous(memory_format=torch.channels_last), torch.randn(b, 512, generator=gen)
+
+
+def inventory_module(make, seed: int) -> torch.nn.Module:
+    from optimalstrategiesagainstgenerativeattacks_torch.nn.init import init_module
+
+    module = make()
+    init_module(module, torch.Generator().manual_seed(seed))
+    return module
+
+
+def check_tensors(what: str, names: list, card: list, ref: list, cpu32: list) -> None:
+    """The card's f32 tensors against the CPU's run in f64 (``ref``; the plain versions
+    take AdaIN's and instance norm's statistics in f32): each within phase 5's rule,
+    |err| <= R1_TOL x its max|ref| + R1_TOL x 1e-3 x the largest max|ref| of all, or
+    no further from ``ref`` than twice the CPU's own f32 run (``cpu32``).  Where a
+    gradient is the small residue of terms that cancel (a conv in front of a norm, a
+    style near 0), f32 rounding alone moves it further than the rule: on the legacy
+    stack the CPU's f32 run misses the rule by ~10x there."""
+    player = max(w.abs().max().item() for w in ref)
+    ratios, yardstick = [], 0
+    for k, a, w, c in zip(names, card, ref, cpu32):
+        if not torch.isfinite(a).all():
+            fail(f"{what}: non-finite {k} on the card")
+        w = w.double()
+        err = (a.cpu().double() - w).abs().max().item()
+        own = (c.double() - w).abs().max().item()
+        limit = R1_TOL * w.abs().max().item() + R1_TOL * 1e-3 * player
+        if err > limit and err <= 2.0 * own:
+            yardstick += 1
+            continue
+        ratios.append((err / limit, err, own, k))
+    ratios.sort(reverse=True)
+    print(f"    {what}, {len(names)} tensors against the f64 CPU run; {yardstick} within twice "
+          f"the CPU f32 run's own error; error / limit of the worst others: "
+          + ", ".join(f"{k} {r:.3f} (CPU f32 {o / (e / r):.3f})" for r, e, o, k in ratios[:3]))
+    if ratios and ratios[0][0] > 1.0:
+        fail(f"{what}: {ratios[0][3]} off by {ratios[0][0]:.3f} x its limit")
+
+
+def run_legacy_bf16(seed: int, counters) -> dict:
+    """The legacy AdaIN stack at the flagship generator's widths in bf16: steps of
+    power iteration, forward, backward and Adam; returns the launches of the run."""
+    from optimalstrategiesagainstgenerativeattacks_torch.ops.spectral import power_iterate
+
+    stack = inventory_module(lambda: LegacyStack(torch.bfloat16), seed).cuda()
+    opt = torch.optim.Adam(stack.parameters(), lr=1e-4, betas=(0.0, 0.99))
+    x, style = (t.cuda() for t in legacy_inputs(LEGACY_B, torch.Generator().manual_seed(seed),
+                                                torch.bfloat16))
+
+    def step():
+        power_iterate(stack)
+        out = stack(x, style)
+        loss = out.float().square().mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return out, loss
+
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(LEGACY_STEPS):
+        out, loss = step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / LEGACY_STEPS
+    launches = {c.name: c.count for c in counters}
+    if tuple(out.shape) != (LEGACY_B, 1, 32, 32) or not torch.isfinite(out).all():
+        fail(f"legacy stack: output {tuple(out.shape)} non-finite or of the wrong shape")
+    bad = [k for k, p in stack.named_parameters() if not torch.isfinite(p.grad).all()]
+    if not math.isfinite(loss.item()) or bad:
+        fail(f"legacy stack: non-finite loss or gradients {bad[:3]}")
+    steps = LEGACY_STEPS + 1
+    per_step = sum(ADAIN_SITES.values())
+    print(f"  layout copies in front of the AdaIN kernels: {launches.pop('adain_nhwc_copy')}")
+    expected = {"adain_fwd": per_step * steps, "adain_bwd": per_step * steps,
+                "attention_core_fwd": 0}
+    print(f"  legacy stack, {steps} steps: launches {launches}, expected {expected} "
+          f"({per_step} + {per_step} a step at phase 3's flagship AdaIN sites)")
+    if launches != expected:
+        fail(f"legacy stack: launches {launches}, expected {expected}")
+    print(f"  legacy stack bf16 B'={LEGACY_B}: output and gradients finite; warm-up step "
+          f"{warm_s:.2f} s; steady {1.0 / step_s:.3f} steps/s, {step_s * 1e3:.2f} ms/step "
+          f"(power iteration, forward, backward, Adam)  [{smi_line()}]")
+    return launches
+
+
+def check_legacy_f32(seed: int) -> None:
+    """The legacy stack in f32, TF32 off, card against CPU: output and parameter
+    gradients, then grad2_penalty of a score and its parameter gradients."""
+    from optimalstrategiesagainstgenerativeattacks_torch.kernels import adain as k1
+    from optimalstrategiesagainstgenerativeattacks_torch.train.losses import grad2_penalty
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(seed + 5)
+    stack = inventory_module(lambda: LegacyStack(None), seed + 5)
+    x, style = legacy_inputs(INVENTORY_CHECK_B, gen, torch.float32)
+    w = torch.randn(INVENTORY_CHECK_B, 1, 32, 32, generator=gen)
+    names = [k for k, _ in stack.named_parameters()]
+
+    def run(device, dtype):
+        module = copy.deepcopy(stack).to(device, dtype)
+        xd, sd, wd = (t.to(device, dtype) for t in (x, style, w))
+        out = module(xd, sd)
+        grads = torch.autograd.grad(out.square().mean(), list(module.parameters()))
+
+        def score(a, s):
+            return torch.sin(module(a, s) * wd).sum(dim=(1, 2, 3))[:, None]
+
+        before = k1.BWD_LAUNCHES.count
+        pen = grad2_penalty(score, (xd, sd))
+        first = k1.BWD_LAUNCHES.count - before
+        pen_grads = torch.autograd.grad(pen.mean(), list(module.parameters()))
+        second = k1.BWD_LAUNCHES.count - before - first
+        return ([out.detach().cpu()], [g.cpu() for g in grads], [pen.detach().cpu()],
+                [g.cpu() for g in pen_grads], (first, second))
+
+    ref, cpu32 = run("cpu", torch.float64), run("cpu", torch.float32)
+    card = run("cuda", torch.float32)
+    print(f"  legacy stack f32 B'={INVENTORY_CHECK_B}, card (TF32 off) against the CPU in f64:")
+    for i, (what, names_i) in enumerate((("output", ["output"]), ("parameter gradients", names),
+                                         ("grad2_penalty", ["penalty"]),
+                                         ("grad2_penalty's parameter gradients", names))):
+        check_tensors(what, names_i, card[i], ref[i], cpu32[i])
+    first, second = card[4]
+    print(f"  grad2_penalty through the stack: card {card[2][0].tolist()}, CPU f64 "
+          f"{ref[2][0].tolist()}; K1b launches: {first} in the first-order pass (one a site: "
+          f"{len(legacy_widths())}), {second} in the parameter gradients' pass")
+    if first != len(legacy_widths()) or ref[4] != (0, 0):
+        fail(f"grad2_penalty: K1b launches {card[4]} on the card, {ref[4]} on the CPU")
+
+
+class SGStack(torch.nn.Module):
+    """The StyleGAN kit at 32x32, style 512: ``SGConstInputBlock`` (4x4x512), decoders to
+    512 (8x8), 256 (16x16) and 128 (32x32), ``SGToImgBlock(1)``; then ``SGFromImgBlock``,
+    two ``SGEncoderBlock``s and an ``SGDisBlock`` back down to 4x4x512."""
+
+    def __init__(self, dtype, use_noise: bool):
+        from optimalstrategiesagainstgenerativeattacks_torch.nn import blocks as b
+
+        super().__init__()
+        self.const = b.SGConstInputBlock(512, 4, SG_STYLE, use_noise=use_noise, dtype=dtype)
+        self.dec = torch.nn.ModuleList(
+            b.SGDecoderBlock(ci, co, SG_STYLE, use_noise=use_noise, dtype=dtype)
+            for ci, co in ((512, 512), (512, 256), (256, 128)))
+        self.to_img = b.SGToImgBlock(128, 1, dtype=dtype)
+        self.from_img = b.SGFromImgBlock(1, 128, dtype=dtype)
+        self.enc = torch.nn.ModuleList((b.SGEncoderBlock(128, 128, 256, SG_STYLE, dtype=dtype),
+                                        b.SGEncoderBlock(256, 256, 512, SG_STYLE, dtype=dtype)))
+        self.dis = b.SGDisBlock(512, 512, 512, dtype=dtype)
+
+    def forward(self, style, generator=None):
+        x = self.const(style, style, generator)
+        for blk in self.dec:
+            x = blk(x, style, style, generator)
+        img = self.to_img(x)
+        h, styles = self.from_img(img), []
+        for blk in self.enc:
+            h, s1, s2 = blk(h)
+            styles += [s1, s2]
+        return img, self.dis(h), torch.cat(styles, dim=1)
+
+
+@torch.no_grad()
+def randomise_sg(module: torch.nn.Module, gen: torch.Generator) -> None:
+    """Random constant images and noise weights (ones and zeros at init)."""
+    from optimalstrategiesagainstgenerativeattacks_torch.nn.blocks import NoiseLayer
+
+    for m in module.modules():
+        if isinstance(m, NoiseLayer):
+            m.weight.copy_(0.5 * torch.randn(m.weight.shape, generator=gen))
+    module.const.init_img.copy_(0.5 * torch.randn(module.const.init_img.shape, generator=gen))
+
+
+def inject_noise(module: torch.nn.Module, seed: int) -> None:
+    """Give each noise layer of ``module`` its own noise, drawn on the CPU from ``seed``
+    and the layer's place, cast to the input's device and dtype (``noise=``)."""
+    from optimalstrategiesagainstgenerativeattacks_torch.nn.blocks import NoiseLayer
+
+    def hook(i):
+        def inject(mod, args, kwargs):
+            x = args[0]
+            noise = torch.randn((x.shape[0], 1, *x.shape[2:]),
+                                generator=torch.Generator().manual_seed(seed * 1000 + i))
+            return args, dict(kwargs, noise=noise.to(x.device, x.dtype))
+        return inject
+
+    layers = [m for m in module.modules() if isinstance(m, NoiseLayer)]
+    for i, m in enumerate(layers):
+        m.register_forward_pre_hook(hook(i), with_kwargs=True)
+
+
+def check_sg_kit(seed: int, counters) -> None:
+    """The StyleGAN kit: bf16 at B=640 (finite, no kernel launched); f32 card against CPU
+    with the same noise injected into both; blur3x3 in bf16 against f32 without cuDNN
+    (the native conv), as phase 4 holds the SN convs."""
+    from optimalstrategiesagainstgenerativeattacks_torch.ops.image_ops import blur3x3
+
+    stack = inventory_module(lambda: SGStack(torch.bfloat16, True), seed + 6).cuda()
+    style = torch.randn(SG_B, SG_STYLE, generator=torch.Generator().manual_seed(seed)).cuda()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    outs = stack(style, torch.Generator(device="cuda").manual_seed(seed))
+    sum(o.float().square().mean() for o in outs).backward()
+    torch.cuda.synchronize()
+    launches = {c.name: c.count for c in counters}
+    bad = [k for k, p in stack.named_parameters() if not torch.isfinite(p.grad).all()]
+    if any(not torch.isfinite(o).all() for o in outs) or bad:
+        fail(f"SG kit bf16: non-finite outputs or gradients {bad[:3]}")
+    print(f"  SG kit bf16 B={SG_B}: outputs {[tuple(o.shape) for o in outs]} finite, "
+          f"gradients finite, forward + backward {time.perf_counter() - t0:.2f} s (first "
+          f"call); launches {launches}  [{smi_line()}]")
+    if any(launches.values()):
+        fail(f"SG kit: kernels launched {launches}")
+    del stack, outs
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(seed + 7)
+    stack = inventory_module(lambda: SGStack(None, True), seed + 7)
+    randomise_sg(stack, gen)
+    style = torch.randn(INVENTORY_CHECK_B, SG_STYLE, generator=gen)
+    names = [k for k, _ in stack.named_parameters()]
+
+    def run(device, dtype, moved: bool = False):
+        module = copy.deepcopy(stack).to(device, dtype)
+        if moved:  # each parameter moved by about one f32 rounding
+            with torch.no_grad():
+                for q in module.parameters():
+                    q.mul_(1 + 2.0 ** -24 * torch.randn(q.shape, generator=gen, dtype=dtype))
+        inject_noise(module, seed + 8)
+        outs = module(style.to(device, dtype))
+        grads = torch.autograd.grad(sum(o.square().mean() for o in outs),
+                                    list(module.parameters()))
+        return [o.detach().cpu() for o in outs], [g.cpu() for g in grads]
+
+    ref, cpu32 = run("cpu", torch.float64), run("cpu", torch.float32)
+    card = run("cuda", torch.float32)
+    print(f"  SG kit f32 B={INVENTORY_CHECK_B}, card (TF32 off) against the CPU in f64, the "
+          f"same noise injected into both:")
+    check_tensors("outputs", ["image", "discriminator map", "encoder styles"], card[0], ref[0],
+                  cpu32[0])
+    # the gradients are printed, not held: behind each lrelu sits an instance norm, and
+    # a kink that one f32 rounding flips moves them past phase 5's rule, in f64 too
+    player = max(w.abs().max().item() for w in ref[1])
+
+    def worst(got):
+        return max(((a.double() - w.double()).abs().max().item()
+                    / (R1_TOL * w.abs().max().item() + R1_TOL * 1e-3 * player), k)
+                   for k, a, w in zip(names, got, ref[1]))
+
+    print("    parameter gradients against the f64 CPU run, error / phase 5's limit of the "
+          "worst tensor (not held): " + "; ".join(
+              f"{what} {r:.3f} ({k})" for what, (r, k) in (
+                  ("card f32", worst(card[1])), ("CPU f32", worst(cpu32[1])),
+                  ("CPU f64 with the parameters moved by 2^-24", worst(run("cpu", torch.float64,
+                                                                           True)[1])))))
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    worst = (0.0, None)
+    for c, h in BLUR_SITES:
+        for fmt in (torch.contiguous_format, torch.channels_last):
+            x = torch.randn(SG_B, c, h, h, device="cuda", generator=gen).to(torch.bfloat16)
+            x = x.contiguous(memory_format=fmt).requires_grad_(True)
+            out = blur3x3(x)
+            g = torch.randn(out.shape, device="cuda", generator=gen)
+            got = (out, *torch.autograd.grad(out, x, g.to(out.dtype)))
+            xf = x.detach().float().requires_grad_(True)
+            with torch.backends.cudnn.flags(enabled=False):
+                ref = blur3x3(xf)
+                want = (ref, *torch.autograd.grad(ref, xf, g))
+            for what, a, r in zip(("output", "d input"), got, want):
+                err = (a.float() - r).abs().max().item() / r.abs().max().item()
+                if not err <= CONV_TOL:
+                    fail(f"blur3x3 bf16 [{SG_B},{c},{h},{h}] {fmt}: {what} off by {err:.3g} "
+                         f"of its max (limit {CONV_TOL})")
+                worst = max(worst, (err, f"{what} at C={c} {h}x{h} {str(fmt)[6:]}"))
+    print(f"  blur3x3 bf16 (cuDNN) against f32 without cuDNN at {len(BLUR_SITES)} sites x 2 "
+          f"layouts: worst error / max|ref| {worst[0]:.3g} ({worst[1]}; limit {CONV_TOL})")
+
+
+def check_rest(seed: int) -> None:
+    """The set stats, ResMLP/ResMLP2, pixel_norm, the pools, and accumulate and freeze
+    over one Adam step, f32 at the authenticator's width (512), card against CPU."""
+    from optimalstrategiesagainstgenerativeattacks_torch.nn import blocks, stats
+    from optimalstrategiesagainstgenerativeattacks_torch.ops import image_ops
+    from optimalstrategiesagainstgenerativeattacks_torch.ops.adain import pixel_norm
+    from optimalstrategiesagainstgenerativeattacks_torch.train import utils
+
+    gen = torch.Generator().manual_seed(seed + 10)
+    sets = torch.randn(REST_B, 5, 512, generator=gen)
+    vec = torch.randn(REST_B, 512, generator=gen)
+    img = torch.randn(REST_B, 512, 8, 8, generator=gen)
+    atol, rtol = TOL[torch.float32]
+    cases = {
+        **{name: (getattr(stats, name)(), sets) for name in
+           ("MeanStat", "StdStat", "LogVarStat", "MeanStdStat", "MeanLogVarStat")},
+        "DoubleFCStat": (inventory_module(lambda: stats.DoubleFCStat(
+            512, 2, (1024,), (1024,)), seed + 11), sets),
+        "ResMLP": (inventory_module(lambda: blocks.ResMLP([512, 1024, 512]), seed + 12), vec),
+        "ResMLP2": (inventory_module(lambda: blocks.ResMLP2([512, 1024, 512]), seed + 13), vec),
+    }
+    ops = {"pixel_norm": pixel_norm, "max_pool2d": image_ops.max_pool2d,
+           "max_pool2d 3/2": lambda t: image_ops.max_pool2d(t, 3, 2),
+           "adaptive_avg_pool": image_ops.adaptive_avg_pool}
+    print(f"  f32 at width 512, card vs CPU (TF32 off; atol {atol}, rtol {rtol}):")
+    for name, (module, x) in cases.items():
+        compare(name, copy.deepcopy(module).cuda()(x.cuda()).cpu(), module(x).detach(), atol,
+                rtol)
+    for name, op in ops.items():
+        compare(name, op(img.cuda()).cpu(), op(img), atol, rtol)
+
+    model = inventory_module(lambda: blocks.ResMLP([512, 1024, 512]), seed + 14)
+    target = torch.randn(REST_B, 512, generator=gen)
+    mask = utils.freeze_mask(model, lambda name: name.startswith("linear."))
+
+    def run(device):
+        m = copy.deepcopy(model).to(device)
+        ema = copy.deepcopy(m)
+        opt = utils.freeze(lambda ps: torch.optim.Adam(ps, lr=REST_LR), m, mask)
+        torch.square(m(vec.to(device)) - target.to(device)).mean().backward()
+        opt.step()
+        utils.accumulate(ema, m, 0.99)
+        for (k, p), p0 in zip(m.named_parameters(), model.parameters()):
+            if mask[k] != (p not in opt.state) or (mask[k] and not torch.equal(p.cpu(), p0)):
+                fail(f"freeze on {device}: {k} frozen {mask[k]} but moved or holds state")
+        return [p.detach().cpu() for p in (*m.parameters(), *ema.parameters())]
+
+    card, cpu = run("cuda"), run("cpu")
+    worst = max(((a - r).abs().max().item(), k) for a, r, k in zip(
+        card, cpu, [f"{w}{k}" for w in ("", "ema ") for k, _ in model.named_parameters()]))
+    print(f"    freeze (linear.*) + Adam (lr {REST_LR}) one step, then accumulate (0.99): "
+          f"parameters and EMA, worst |err| {worst[0]:.3e} ({worst[1]}; limit 2 lr, Adam's "
+          f"first step is lr g / (|g| + eps))")
+    if not worst[0] <= 2 * REST_LR:
+        fail(f"freeze/accumulate: {worst[1]} off by {worst[0]}")
+
+
+def run_inventory(seed: int, counters) -> dict:
+    """Phase 14; returns the launches of the legacy stack's bf16 run."""
+    t0 = time.perf_counter()
+    launches = run_legacy_bf16(seed, counters)
+    check_legacy_f32(seed)
+    check_sg_kit(seed, counters)
+    check_rest(seed)
+    print(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2043,6 +2461,14 @@ def main() -> None:
         results[name]["multiseed_launches"] = n
     check_multiseed_f32(args.seed, feed_sets["flagship"])
     run_multiseed_small(args.seed, counters)
+
+    print(f"[14/{N_PHASES}] inventory: the legacy AdaIN stack (flagship widths, B'={LEGACY_B}, "
+          f"bf16: {LEGACY_STEPS + 1} steps; f32 card vs CPU f64 and grad2_penalty through it, "
+          f"phase 5's rule), the StyleGAN kit (bf16 B={SG_B}; f32 card vs CPU f64; blur3x3 bf16 "
+          f"against f32, tol {CONV_TOL} x max|ref|), the stats, ResMLPs, pixel_norm, pools, "
+          f"freeze and accumulate at width 512", flush=True)
+    for name, n in run_inventory(args.seed, counters).items():
+        results[name]["inventory_launches"] = n
 
     print(smi_line())
     print(json.dumps({"kernels": list(results.values())}))

@@ -32,6 +32,7 @@ from optimalstrategiesagainstgenerativeattacks_torch.baselines.layers import (
     PReLU,
 )
 from optimalstrategiesagainstgenerativeattacks_torch.baselines.siamese import flatten_nhwc
+from optimalstrategiesagainstgenerativeattacks_torch.nn.init import uniform_pm1_
 from optimalstrategiesagainstgenerativeattacks_torch.ops.image_ops import to_nchw
 
 
@@ -150,7 +151,7 @@ class ArcfaceHead(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        self.weight.uniform_(-1.0, 1.0, generator=generator)
+        uniform_pm1_(self.weight, generator)
 
     def forward(self, embeddings, label):
         cos_m, sin_m = math.cos(self.m), math.sin(self.m)

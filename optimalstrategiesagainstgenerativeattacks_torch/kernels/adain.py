@@ -62,10 +62,19 @@ Zero variance: when sigma == 0 the centred values are all 0 and the
 sigma-term of dx (c_i/sigma * sum g c) tends to 0; the kernel and its plain
 version drop it there, so dx stays finite.  The Pallas backward divided by
 sigma and autodiff through sqrt(0) both give non-finite dx at that point.
+Differentiated again, sigma is held constant where it is 0: the same limit.
+
+Double backward (an R1 penalty through AdaIN): the backward is itself a
+function, ``AdaINBackward``, whose forward launches the backward kernel and
+whose backward differentiates the closed form ``ada_in_bwd_ref`` with torch
+ops, as the attention core's backward is differentiated again
+(``kernels/attention.py:attention_core_bwd``).  The kernel's outputs alone
+carry no graph, so a double backward through them would lose every term
+that passes through AdaIN.
 
 Plain PyTorch versions of the same functions (``ada_in_ref`` and the
-closed-form ``ada_in_bwd_ref``) sit below; the wrapper runs them only for
-tensors on the CPU.
+closed-form ``ada_in_bwd_ref``) sit below; the wrappers run them for tensors
+on the CPU, and the closed form's derivative on either device.
 """
 
 from __future__ import annotations
@@ -73,6 +82,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from optimalstrategiesagainstgenerativeattacks_torch.kernels.build import (
     LaunchCounter,
@@ -425,19 +435,23 @@ def ada_in_bwd_ref(x, std_s, g, eps: float = 1e-5):
 
     Returns (dx in x's dtype, dmean_s f32 [B, C], dstd_s f32 [B, C]); the
     sigma-term of dx is dropped where sigma == 0 (see the module docstring).
+    Every op is differentiable, and where sigma == 0 sigma has a zero
+    derivative, so the second order keeps the same limit.
     """
     n = x.shape[2] * x.shape[3]
     nm1 = max(n - 1, 1)
     f = x.float()
     gf = g.float()
     centred = f - f.mean(dim=(2, 3), keepdim=True)
-    sigma = (centred.square().sum(dim=(2, 3), keepdim=True) / nm1).sqrt()
+    var = centred.square().sum(dim=(2, 3), keepdim=True) / nm1
+    live = var > 0
+    ones, zeros = torch.ones_like(var), torch.zeros_like(var)
+    sigma = torch.where(live, torch.where(live, var, ones).sqrt(), zeros)
     denom = sigma + eps
     s = std_s.float()[:, :, None, None]
     g_dot_c = (gf * centred).sum(dim=(2, 3), keepdim=True)
-    safe_sigma = torch.where(sigma > 0, sigma, torch.ones_like(sigma))
-    coef = torch.where(sigma > 0, s / denom.square() * g_dot_c / (nm1 * safe_sigma),
-                       torch.zeros_like(sigma))
+    safe_sigma = torch.where(live, sigma, ones)
+    coef = torch.where(live, s / denom.square() * g_dot_c / (nm1 * safe_sigma), zeros)
     dx = s / denom * (gf - gf.mean(dim=(2, 3), keepdim=True)) - coef * centred
     return dx.to(x.dtype), gf.sum(dim=(2, 3)), (g_dot_c / denom).flatten(1)
 
@@ -458,6 +472,26 @@ def _bwd(x, std_s, g, eps):
     raise ValueError(f"ada_in backward: no kernel for device {x.device}")
 
 
+class AdaINBackward(torch.autograd.Function):
+    """(x, std_s, g) -> (dx, dmean_s, dstd_s): the backward kernel as forward; as
+    backward, autograd of the closed form (once: a third order raises)."""
+
+    @staticmethod
+    def forward(ctx, x, std_s, g, eps):
+        ctx.save_for_backward(x, std_s, g)
+        ctx.eps = eps
+        return _bwd(x, std_s, g, eps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ddx, ddm, dds):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            grads = torch.autograd.grad(ada_in_bwd_ref(*inputs, ctx.eps), inputs,
+                                        (ddx, ddm, dds))
+        return (*grads, None)
+
+
 class AdaINFunction(torch.autograd.Function):
     """AdaIN with the fused kernels as forward and backward."""
 
@@ -471,7 +505,7 @@ class AdaINFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, std_s = ctx.saved_tensors
-        dx, dm, ds = _bwd(x, std_s, g, ctx.eps)
+        dx, dm, ds = AdaINBackward.apply(x, std_s, g, ctx.eps)
         return dx, dm.to(ctx.mean_dtype), ds.to(std_s.dtype), None
 
 

@@ -1,9 +1,10 @@
 """Building blocks of the image game, NCHW (channels_last memory inside).
 
-Counterpart of ``optimalstrategiesagainstgenerativeattacks_tpu/nn/blocks.py``
-for the blocks the image game's main path uses.  Submodule and parameter
-names follow the Flax names, so ``port/transplant.py`` maps one tree onto the
-other by rule.
+Counterpart of ``optimalstrategiesagainstgenerativeattacks_tpu/nn/blocks.py``:
+the blocks of the image game's main path, and the reference's others (the
+residual MLPs, the StyleGAN kit and the legacy AdaIN blocks, which no entry
+path uses).  Submodule and parameter names follow the Flax names, so
+``port/transplant.py`` maps one tree onto the other by rule.
 
 Compute dtype policy (as in the reference): parameters stay f32; every conv
 and linear casts its input and its (normalised) weight to ``dtype`` when one
@@ -30,10 +31,16 @@ from optimalstrategiesagainstgenerativeattacks_torch.nn.init import (
     kaiming_normal_,
     torch_default_,
 )
-from optimalstrategiesagainstgenerativeattacks_torch.ops.adain import ada_in, instance_norm
+from optimalstrategiesagainstgenerativeattacks_torch.ops.adain import (
+    ada_in,
+    instance_norm,
+    pixel_norm,
+)
 from optimalstrategiesagainstgenerativeattacks_torch.ops.image_ops import (
     avg_pool2d,
+    blur3x3,
     leaky_relu,
+    to_nhwc,
     upscale2d,
 )
 from optimalstrategiesagainstgenerativeattacks_torch.ops.spectral import (
@@ -66,6 +73,33 @@ class Dense(nn.Module):
             return F.linear(x, self.weight, self.bias)
         dt = self.dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Conv(nn.Module):
+    """Plain conv (no spectral norm), stride 1; ``init`` as ``Dense``'s."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 padding: int = 0, dtype: Optional[torch.dtype] = None, init: str = "torch"):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size, kernel_size)
+        )
+        self.bias = nn.Parameter(torch.empty(out_channels))
+        self.padding = padding
+        self.dtype = dtype
+        self.init = init
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.init == "kaiming":
+            kaiming_normal_(self.weight, self.bias, generator)
+        else:
+            torch_default_(self.weight, self.bias, generator)
+
+    def forward(self, x):
+        w, b = self.weight, self.bias
+        if self.dtype is not None:
+            x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
+        return conv2d(x, w, b, self.padding)
 
 
 class SNConv(nn.Module):
@@ -148,6 +182,20 @@ class InstanceNorm(nn.Module):
         return instance_norm(x, self.weight, self.bias, self.eps)
 
 
+class Flatten(nn.Module):
+    """[B, ...] -> [B, -1], an NCHW map in NHWC order (the reference's element order)."""
+
+    def forward(self, x):
+        return (to_nhwc(x) if x.ndim == 4 else x).reshape(x.shape[0], -1)
+
+
+class Identity(nn.Module):
+    """Pass-through."""
+
+    def forward(self, x):
+        return x
+
+
 class MLP(nn.Module):
     """Linear + LeakyReLU(0.2) stack with a linear head; ``layer_dims`` includes the input."""
 
@@ -163,6 +211,247 @@ class MLP(nn.Module):
         for layer in self.layers[:-1]:
             x = leaky_relu(layer(x))
         return self.layers[-1](x)
+
+
+class ResMLP(nn.Module):
+    """``out_linear([linear(x), model(x)])``: a skip linear beside an MLP."""
+
+    def __init__(self, layer_dims: Sequence[int], dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        d_in, d_out = layer_dims[0], layer_dims[-1]
+        self.linear = Dense(d_in, d_out, dtype=dtype)
+        self.model = MLP(layer_dims, dtype=dtype)
+        self.out_linear = Dense(2 * d_out, d_out, dtype=dtype)
+
+    def forward(self, x):
+        return self.out_linear(torch.cat([self.linear(x), self.model(x)], dim=-1))
+
+
+class ResMLP2(nn.Module):
+    """``linear([x, model(x)])``: the input concatenated beside an MLP."""
+
+    def __init__(self, layer_dims: Sequence[int], dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.model = MLP(layer_dims, dtype=dtype)
+        self.linear = Dense(layer_dims[0] + layer_dims[-1], layer_dims[-1], dtype=dtype)
+
+    def forward(self, x):
+        return self.linear(torch.cat([x, self.model(x)], dim=-1))
+
+
+@torch.no_grad()
+def init_resmlp_to_replay(module: nn.Module, style_dim: int, generator: torch.Generator) -> None:
+    """Re-initialise a ``ResMLP``/``ResMLP2`` in place for replay: each skip linear
+    (``linear``, ``out_linear``) N(0, 1e-4^2) with the identity on its leading
+    [style_dim, style_dim] block and a zero bias; the inner MLP kaiming(0.2), zero bias.
+    The bits differ from the reference's (another generator); the distributions are its."""
+    for name in ("linear", "out_linear"):
+        lin = getattr(module, name, None)
+        if lin is not None:
+            lin.weight.normal_(0.0, 1e-4, generator=generator)
+            lin.weight[:style_dim, :style_dim] = torch.eye(style_dim)
+            lin.bias.zero_()
+    for layer in module.model.layers:
+        kaiming_normal_(layer.weight, layer.bias, generator)
+
+
+class NoiseLayer(nn.Module):
+    """x + weight[c] * noise[b, 1, h, w], with a per-channel weight that starts at 0.
+
+    ``noise`` [B, 1, H, W] is given, or drawn in x's dtype on x's device from
+    ``generator`` (the default generator without one).
+    """
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(channels))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.weight.zero_()
+
+    def forward(self, x, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        if noise is None:
+            noise = torch.randn((x.shape[0], 1, *x.shape[2:]), generator=generator,
+                                device=x.device, dtype=x.dtype)
+        return x + self.weight[:, None, None] * noise
+
+
+class StyleMod(nn.Module):
+    """x * (s0 + 1) + s1 with (s0, s1) = ``lin(style)`` split at C."""
+
+    def __init__(self, channels: int, style_dim: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.lin = Dense(style_dim, 2 * channels, dtype=dtype)
+        self.channels = channels
+
+    def forward(self, x, style):
+        s = self.lin(style)[:, :, None, None]
+        return x * (s[:, :self.channels] + 1.0) + s[:, self.channels:]
+
+
+class StyleEstimator(nn.Module):
+    """1x1 conv -> lrelu -> global mean -> linear: NCHW -> [B, style_dim]."""
+
+    def __init__(self, in_channels: int, style_dim: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv = Conv(in_channels, 2 * style_dim, 1, dtype=dtype)
+        self.lin = Dense(2 * style_dim, style_dim, dtype=dtype)
+
+    def forward(self, x):
+        return self.lin(leaky_relu(self.conv(x)).mean(dim=(2, 3)))
+
+
+class SGLayerEpilogue(nn.Module):
+    """Noise, lrelu, pixel norm and/or instance norm, then ``StyleMod``.
+
+    ``instance_norm`` here is the plain one (biased variance, eps inside the
+    sqrt), not AdaIN's statistics, so it runs stock ops and no AdaIN kernel.
+    """
+
+    def __init__(self, channels: int, style_dim: int, use_pixel_norm: bool = False,
+                 use_instance_norm: bool = True, use_noise: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.noise = NoiseLayer(channels) if use_noise else None
+        self.style_mod = StyleMod(channels, style_dim, dtype=dtype)
+        self.use_pixel_norm = use_pixel_norm
+        self.use_instance_norm = use_instance_norm
+
+    def forward(self, x, style, generator: Optional[torch.Generator] = None):
+        if self.noise is not None:
+            x = self.noise(x, generator=generator)
+        x = leaky_relu(x)
+        if self.use_pixel_norm:
+            x = pixel_norm(x)
+        if self.use_instance_norm:
+            x = instance_norm(x)
+        return self.style_mod(x, style)
+
+
+def _epilogues(channels: int, style_dim: int, use_pixel_norm: bool, use_instance_norm: bool,
+               use_noise: bool, dtype) -> tuple:
+    return tuple(SGLayerEpilogue(channels, style_dim, use_pixel_norm, use_instance_norm,
+                                 use_noise, dtype) for _ in range(2))
+
+
+class SGInputBlock(nn.Module):
+    """epilogue -> 3x3 conv -> epilogue."""
+
+    def __init__(self, channels: int, style_dim: int, use_pixel_norm: bool = False,
+                 use_instance_norm: bool = True, use_noise: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.epi1, self.epi2 = _epilogues(channels, style_dim, use_pixel_norm,
+                                          use_instance_norm, use_noise, dtype)
+        self.conv = Conv(channels, channels, 3, padding=1, dtype=dtype)
+
+    def forward(self, x, style1, style2, generator: Optional[torch.Generator] = None):
+        x = self.conv(self.epi1(x, style1, generator))
+        return self.epi2(x, style2, generator)
+
+
+class SGConstInputBlock(nn.Module):
+    """A learned constant image [1, C, s, s] plus a per-channel bias (both start at 1),
+    broadcast over the batch, through ``SGInputBlock``."""
+
+    def __init__(self, channels: int, init_img_size: int, style_dim: int,
+                 use_pixel_norm: bool = False, use_instance_norm: bool = True,
+                 use_noise: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.init_img = nn.Parameter(torch.ones(1, channels, init_img_size, init_img_size))
+        self.bias = nn.Parameter(torch.ones(channels))
+        self.model = SGInputBlock(channels, style_dim, use_pixel_norm, use_instance_norm,
+                                  use_noise, dtype)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.init_img.fill_(1.0)
+        self.bias.fill_(1.0)
+
+    def forward(self, style1, style2, generator: Optional[torch.Generator] = None):
+        x = self.init_img.expand(style1.shape[0], -1, -1, -1) + self.bias[:, None, None]
+        return self.model(x, style1, style2, generator)
+
+
+class SGToImgBlock(nn.Module):
+    """1x1 conv to the image channels, kaiming(0.2) init."""
+
+    def __init__(self, in_channels: int, img_channels: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.model = Conv(in_channels, img_channels, 1, dtype=dtype, init="kaiming")
+
+    def forward(self, x):
+        return self.model(x)
+
+
+class SGFromImgBlock(nn.Module):
+    """1x1 conv from the image channels, kaiming(0.2) init, then lrelu."""
+
+    def __init__(self, img_channels: int, out_channels: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv = Conv(img_channels, out_channels, 1, dtype=dtype, init="kaiming")
+
+    def forward(self, x):
+        return leaky_relu(self.conv(x))
+
+
+class SGDecoderBlock(nn.Module):
+    """2x upsample -> 3x3 conv -> blur -> epilogue -> 3x3 conv -> epilogue (kaiming convs)."""
+
+    def __init__(self, in_channels: int, out_channels: int, style_dim: int,
+                 use_pixel_norm: bool = False, use_instance_norm: bool = True,
+                 use_noise: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv1 = Conv(in_channels, out_channels, 3, padding=1, dtype=dtype, init="kaiming")
+        self.conv2 = Conv(out_channels, out_channels, 3, padding=1, dtype=dtype, init="kaiming")
+        self.epi1, self.epi2 = _epilogues(out_channels, style_dim, use_pixel_norm,
+                                          use_instance_norm, use_noise, dtype)
+
+    def forward(self, x, style1, style2, generator: Optional[torch.Generator] = None):
+        x = self.epi1(blur3x3(self.conv1(upscale2d(x))), style1, generator)
+        return self.epi2(self.conv2(x), style2, generator)
+
+
+class SGEncoderBlock(nn.Module):
+    """(3x3 conv, lrelu, style estimate) x 2, then 2x2 average pooling (kaiming convs);
+    returns (x, style1, style2)."""
+
+    def __init__(self, in_channels: int, out_channels1: int, out_channels2: int,
+                 style_dim: int, pool: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv1 = Conv(in_channels, out_channels1, 3, padding=1, dtype=dtype, init="kaiming")
+        self.style_est1 = StyleEstimator(out_channels1, style_dim, dtype=dtype)
+        self.conv2 = Conv(out_channels1, out_channels2, 3, padding=1, dtype=dtype,
+                          init="kaiming")
+        self.style_est2 = StyleEstimator(out_channels2, style_dim, dtype=dtype)
+        self.pool = pool
+
+    def forward(self, x):
+        x = leaky_relu(self.conv1(x))
+        style1 = self.style_est1(x)
+        x = leaky_relu(self.conv2(x))
+        style2 = self.style_est2(x)
+        return (avg_pool2d(x) if self.pool else x), style1, style2
+
+
+class SGDisBlock(nn.Module):
+    """(3x3 conv, lrelu) x 2, then 2x2 average pooling (kaiming convs)."""
+
+    def __init__(self, in_channels: int, out_channels1: int, out_channels2: int,
+                 pool: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv1 = Conv(in_channels, out_channels1, 3, padding=1, dtype=dtype, init="kaiming")
+        self.conv2 = Conv(out_channels1, out_channels2, 3, padding=1, dtype=dtype,
+                          init="kaiming")
+        self.pool = pool
+
+    def forward(self, x):
+        x = leaky_relu(self.conv2(leaky_relu(self.conv1(x))))
+        return avg_pool2d(x) if self.pool else x
 
 
 class ResBlockDown(nn.Module):
@@ -286,6 +575,64 @@ class AdaResBlockUp2(nn.Module):
         out = leaky_relu(ada_in(out, self.lin2_mean(style), self.lin2_std(style)))
         return self.conv_r2(out) + res
 
+
+class AdaResBlock(nn.Module):
+    """Legacy AdaIN residual block: conv, AdaIN, lrelu, conv, AdaIN, plus x.
+
+    Each style is [B, 2C]: the AdaIN mean is ``style[:, :C]``, the std ``style[:, C:]``.
+    """
+
+    def __init__(self, channels: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv1 = SNConv(channels, channels, 3, padding=1, dtype=dtype)
+        self.conv2 = SNConv(channels, channels, 3, padding=1, dtype=dtype)
+        self.channels = channels
+
+    def forward(self, x, style1, style2):
+        c = self.channels
+        out = leaky_relu(ada_in(self.conv1(x), style1[:, :c], style1[:, c:]))
+        return ada_in(self.conv2(out), style2[:, :c], style2[:, c:]) + x
+
+
+class ResBlockD(nn.Module):
+    """SN conv + instance norm residual block: conv, IN, lrelu, conv, IN, plus x."""
+
+    def __init__(self, channels: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv1 = SNConv(channels, channels, 3, padding=1, dtype=dtype)
+        self.in1 = InstanceNorm(channels)
+        self.conv2 = SNConv(channels, channels, 3, padding=1, dtype=dtype)
+        self.in2 = InstanceNorm(channels)
+
+    def forward(self, x):
+        out = leaky_relu(self.in1(self.conv1(x)))
+        return self.in2(self.conv2(out)) + x
+
+
+class AdaResBlockUp(nn.Module):
+    """Legacy AdaIN residual 2x up block; styles [B, 2 C_in] and [B, 2 C_out] (mean, std).
+
+    left: 1x1 conv -> upsample (the reference's order); right: AdaIN, lrelu,
+    upsample, conv, AdaIN, lrelu, conv.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, conv_size: int = 3,
+                 padding: int = 1, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv_l1 = SNConv(in_channels, out_channels, 1, padding=0, dtype=dtype)
+        self.conv_r1 = SNConv(in_channels, out_channels, conv_size, padding=padding,
+                              dtype=dtype)
+        self.conv_r2 = SNConv(out_channels, out_channels, conv_size, padding=padding,
+                              dtype=dtype)
+        self.in_channels, self.out_channels = in_channels, out_channels
+
+    def forward(self, x, style1, style2):
+        ci, co = self.in_channels, self.out_channels
+        res = upscale2d(self.conv_l1(x))
+        out = leaky_relu(ada_in(x, style1[:, :ci], style1[:, ci:]))
+        out = self.conv_r1(upscale2d(out))
+        out = leaky_relu(ada_in(out, style2[:, :co], style2[:, co:]))
+        return self.conv_r2(out) + res
 
 
 class ImgAttConvBlock(nn.Module):

@@ -8,6 +8,8 @@ Two estimators, as in the reference:
     tensors and its plain version on CPU tensors;
   * ``instance_norm``: the *biased* variance with eps added to the
     variance (torch ``InstanceNorm2d`` semantics).
+
+``pixel_norm`` (StyleGAN's PixelNorm) normalises over the channel axis.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from optimalstrategiesagainstgenerativeattacks_torch.kernels.adain import ada_in
 
-__all__ = ["ada_in", "instance_norm"]
+__all__ = ["ada_in", "instance_norm", "pixel_norm"]
 
 
 def instance_norm(x, weight=None, bias=None, eps: float = 1e-5):
@@ -30,3 +32,9 @@ def instance_norm(x, weight=None, bias=None, eps: float = 1e-5):
     if bias is not None:
         out = out + bias.float()[:, None, None]
     return out.to(x.dtype)
+
+
+def pixel_norm(x, eps: float = 1e-8):
+    """PixelNorm over the channel axis of NCHW x in f32: x * rsqrt(mean_c(x^2) + eps)."""
+    f = x.float()
+    return (f * torch.rsqrt(f.square().mean(dim=1, keepdim=True) + eps)).to(x.dtype)

@@ -24,9 +24,14 @@ def custom_std(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     encoder's last biases then misses the reference's at f32 tolerances.
     """
     if x.shape[1] > 1:
-        centred = x - x.mean(dim=1, keepdim=True)
-        return torch.sqrt((centred * centred).sum(dim=1) / (x.shape[1] - 1) + eps)
+        return torch.sqrt(unbiased_var(x) + eps)
     return torch.zeros((x.shape[0], *x.shape[2:]), dtype=x.dtype, device=x.device)
+
+
+def unbiased_var(x: torch.Tensor) -> torch.Tensor:
+    """Unbiased sample variance over axis 1: the sum of centred squares over N - 1."""
+    centred = x - x.mean(dim=1, keepdim=True)
+    return (centred * centred).sum(dim=1) / (x.shape[1] - 1)
 
 
 def std_stat(x: torch.Tensor) -> torch.Tensor:
@@ -37,3 +42,13 @@ def std_stat(x: torch.Tensor) -> torch.Tensor:
 def mean_std_stat(x: torch.Tensor) -> torch.Tensor:
     """Concat of mean and safe std along the latent axis (n_stats=2)."""
     return torch.cat([mean_stat(x), std_stat(x)], dim=-1)
+
+
+def logvar_stat(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """[batch, sample, latent] -> [batch, latent] log of (unbiased var + eps)."""
+    return torch.log(unbiased_var(x) + eps)
+
+
+def mean_logvar_stat(x: torch.Tensor) -> torch.Tensor:
+    """Concat of mean and log-variance along the latent axis (n_stats=2)."""
+    return torch.cat([mean_stat(x), logvar_stat(x)], dim=-1)

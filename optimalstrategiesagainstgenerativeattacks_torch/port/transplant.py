@@ -11,7 +11,9 @@ The rules:
   * ``Dense`` ``kernel`` [in, out]           <->  ``weight`` [out, in] (the ArcFace
     head's [emb, classes] kernel included);
   * ``Dense_<i>`` inside an MLP              <->  ``layers.<i>``;
-  * InstanceNorm and BatchNorm ``scale``     <->  ``weight``;
+  * InstanceNorm and BatchNorm ``scale``     <->  ``weight``; a 1-D ``weight``
+    with no ``bias`` beside it (``NoiseLayer``'s) keeps its name;
+  * ``init_img`` NHWC [1, s, s, C]           <->  NCHW [1, C, s, s];
   * BatchNorm ``mean`` / ``var``             <->  ``running_mean`` / ``running_var``;
   * ``bias``, ``gamma``, the PReLU ``alpha`` and the spectral ``u`` / ``v`` keep
     their names (u, v are buffers on the port's side);
@@ -69,6 +71,8 @@ def _emit(path: Tuple[str, ...], arr: np.ndarray, out: Dict[str, np.ndarray]) ->
         arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
     elif leaf == "scale":
         leaf = "weight"
+    elif leaf == "init_img":
+        arr = arr.transpose(0, 3, 1, 2)
     elif leaf in _BN_STATS:
         leaf = "running_" + leaf
     out[".".join(mods + [leaf])] = np.ascontiguousarray(arr, dtype=np.float32)
@@ -101,6 +105,7 @@ def state_dict_to_flax(state_dict: Mapping) -> Tuple[dict, dict]:
     reference's default (stacked) layout; state is ``spectral`` or ``batch_stats``."""
     stacks: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
     plain: Dict[Tuple[str, ...], np.ndarray] = {}
+    biased = {key[:-len("bias")] for key in state_dict if key.split(".")[-1] == "bias"}
     for key, value in state_dict.items():
         arr = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
         parts = key.split(".")
@@ -110,8 +115,10 @@ def state_dict_to_flax(state_dict: Mapping) -> Tuple[dict, dict]:
                 leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
             elif arr.ndim == 2:
                 leaf, arr = "kernel", arr.T
-            else:
+            elif key[:-len("weight")] in biased:
                 leaf = "scale"
+        elif leaf == "init_img":
+            arr = arr.transpose(0, 2, 3, 1)
         elif leaf in ("running_mean", "running_var"):
             leaf = leaf[len("running_"):]
         path, index, i = [], None, 0

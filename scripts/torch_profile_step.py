@@ -1,7 +1,7 @@
 """Where a train step's time goes on the GPU: a torch.profiler trace of a few steps.
 
-    python scripts/torch_profile_step.py [--config flagship|vox|gaussian] [--warm N]
-                                         [--steps N] [--trace PATH.json.gz]
+    python scripts/torch_profile_step.py [--config flagship|vox|gaussian|legacy]
+                                         [--warm N] [--steps N] [--trace PATH.json.gz]
 
 Builds the port's game state from a seed at the flagship config (B=128,
 32x32x1, style 512, bf16), the VoxCeleb config (64x64x3, R1 with
@@ -9,7 +9,8 @@ reg_param 10) or the Gaussian game's Nash-check config (d=10, m1 n5 k10,
 head x8, B=4096, f32), takes ``--warm`` steps, then traces ``--steps``
 calls of ``train_step`` (the image game's on two device-resident uint8
 batches; the Gaussian game's drawing its batch on the device) and prints,
-per step:
+per step (``legacy``: a step of ``chip_smoke.py`` phase 14's legacy AdaIN
+stack, B'=640, bf16: power iteration, forward, backward, Adam):
   * host ms (wall clock up to the final synchronize) and the ms the host
     took to enqueue the steps (before that synchronize);
   * device busy ms (the union of the kernels', memsets' and copies'
@@ -50,6 +51,7 @@ CONFIGS = {
                 env_noise_mapping_lr=1e-6, reg_param=10.0),
     # the README's Nash check of the Gaussian game
     "gaussian": dict(src_dim=10, m=1, n=5, k=10, au_hidden_scale=8, batch_size=4096),
+    "legacy": {},
 }
 # (category, substrings of a kernel name), first match wins
 CATEGORIES = (
@@ -57,6 +59,7 @@ CATEGORIES = (
     ("K1/K1b AdaIN (port)", ("adain_",)),
     ("avg_pool2d forward + backward", ("avg_pool",)),
     ("cuDNN layout transforms", ("nchwToNhwc", "nhwcToNchw", "nchwtonhwc", "nhwctonchw")),
+    ("im2col / col2im (conv_one_channel)", ("im2col", "col2im")),
     ("convolutions", ("conv", "fprop", "dgrad", "wgrad", "cudnn")),
     ("GEMMs", ("gemm", "gemv")),
     ("softmax", ("softmax",)),
@@ -102,7 +105,25 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU: torch.cuda.is_available() is false")
 
-    if args.config == "gaussian":
+    if args.config == "legacy":
+        import chip_smoke as cs
+        from optimalstrategiesagainstgenerativeattacks_torch.ops.spectral import power_iterate
+
+        stack = cs.inventory_module(lambda: cs.LegacyStack(torch.bfloat16), args.seed).cuda()
+        opt = torch.optim.Adam(stack.parameters(), lr=1e-4, betas=(0.0, 0.99))
+        x, style = (t.cuda() for t in cs.legacy_inputs(
+            cs.LEGACY_B, torch.Generator().manual_seed(args.seed), torch.bfloat16))
+
+        def step():
+            power_iterate(stack)
+            loss = stack(x, style).float().square().mean()
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+
+        for _ in range(args.warm):
+            step()
+    elif args.config == "gaussian":
         cfg = GaussianGameConfig(seed=args.seed, **CONFIGS[args.config])
         state = tg.create_state(cfg, "cuda")
         tg.train_chunk(state, args.warm)
@@ -146,11 +167,15 @@ def main() -> None:
         by_cat[category(e.name)] += e.time_range.end - e.time_range.start
         by_name[e.name] += e.time_range.end - e.time_range.start
     n = args.steps
-    shape = (f"d={cfg.src_dim} m={cfg.m} n={cfg.n} k={cfg.k} head x{cfg.au_hidden_scale}"
-             if args.config == "gaussian" else
-             f"img={cfg.img_size}x{cfg.img_size}x{cfg.img_channels} style={cfg.style_dim}")
-    print(f"{args.config}: B={cfg.batch_size} {shape} reg_param={cfg.reg_param} "
-          f"{cfg.compute_dtype}; {n} traced steps after {args.warm}")
+    if args.config == "legacy":
+        print(f"legacy: the AdaIN stack of chip_smoke.py phase 14, B'={cs.LEGACY_B}, bf16; "
+              f"{n} traced steps after {args.warm}")
+    else:
+        shape = (f"d={cfg.src_dim} m={cfg.m} n={cfg.n} k={cfg.k} head x{cfg.au_hidden_scale}"
+                 if args.config == "gaussian" else
+                 f"img={cfg.img_size}x{cfg.img_size}x{cfg.img_channels} style={cfg.style_dim}")
+        print(f"{args.config}: B={cfg.batch_size} {shape} reg_param={cfg.reg_param} "
+              f"{cfg.compute_dtype}; {n} traced steps after {args.warm}")
     print(f"  host {wall_us / n / 1e3:.2f} ms/step under the profiler, of which enqueue "
           f"{(t_enqueued - t0) * 1e3 / n:.2f} ms/step")
     print(f"  device busy {busy / n / 1e3:.2f} ms/step, idle share {1 - busy / wall_us:.3f}, "

@@ -28,6 +28,12 @@ style 64, f32) to the CPU's at 1e-3 of each tensor's largest entry plus
 1e-6 of the player's, as ``chip_smoke.py`` phase 5 holds it at the
 VoxCeleb widths.
 
+AdaIN's double backward (an R1 penalty through the generator's blocks): the
+first order launches K1b once, the second differentiates the closed form
+with torch ops; the gradients of a function of the first-order gradients on
+the card equal the CPU's at the f32 bars, at [4, 4, 4, 64] (resident tile)
+and [4, 32, 32, 1] (flat tile).
+
 A spectrally normalised conv of one channel to one channel runs as im2col
 and a matmul on the card (``nn/blocks.py:conv_one_channel``): cuDNN 9.22
 computes the flagship env decoder's last conv ([640, 1, 32, 32], 3x3) wrongly
@@ -252,6 +258,34 @@ def test_attention_double_backward_on_the_card_matches_the_cpu(gen, no_tf32, dty
     for a, w in zip(got, want):
         assert torch.isfinite(a).all()
         _close(a.cpu(), w, dtype)
+
+
+def _adain_second_order(x, ms, ss, ct, ct2):
+    """(d/d(x, mean, std) of |d sum(sin(ada_in) ct) / d(x, mean, std)|^2-like R, K1b
+    launches of the first-order backward): a double backward through AdaIN."""
+    leaves = [t.clone().requires_grad_(True) for t in (x, ms, ss)]
+    before = k1.BWD_LAUNCHES.count
+    gx, gm, gs = torch.autograd.grad((torch.sin(k1.ada_in(*leaves)) * ct).sum(), leaves,
+                                     create_graph=True)
+    launches = k1.BWD_LAUNCHES.count - before
+    r = (gx * gx * ct2).sum() + (gm * gm).sum() + (gs * gs).sum()
+    return torch.autograd.grad(r, leaves), launches
+
+
+@pytest.mark.parametrize("bchw", [(4, 64, 4, 4), (4, 1, 32, 32)], ids=["4x4x64", "32x32x1"])
+def test_adain_double_backward_on_the_card_matches_the_cpu(gen, bchw):
+    """The first order on K1b (one launch), the second through the closed form's
+    derivative: on the card as on the CPU.  K1b's outputs alone carry no graph."""
+    x = _rand(gen, *bchw).contiguous(memory_format=torch.channels_last)
+    ms, ss = _rand(gen, bchw[0], bchw[1]), _rand(gen, bchw[0], bchw[1])
+    ct, ct2 = _rand(gen, *bchw), _rand(gen, *bchw)
+    got, launches = _adain_second_order(x, ms, ss, ct, ct2)
+    assert launches == 1
+    want, cpu_launches = _adain_second_order(*(t.cpu() for t in (x, ms, ss, ct, ct2)))
+    assert cpu_launches == 0
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        _close(a.cpu(), w, torch.float32)
 
 
 def test_r1_through_the_kernels_matches_the_cpu(gen, no_tf32):

@@ -13,6 +13,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from optimalstrategiesagainstgenerativeattacks_torch.kernels import adain as kadain
 from optimalstrategiesagainstgenerativeattacks_torch.kernels.adain import (
     ada_in,
     ada_in_bwd_ref,
@@ -105,6 +106,64 @@ def test_ada_in_bwd_ref_equals_autograd_of_ada_in_ref():
     dx, dm, ds = ada_in_bwd_ref(xt.detach(), st.detach(), g)
     for got, want in ((dx, xt.grad), (dm, mt.grad), (ds, st.grad)):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-6)
+
+
+def _jax_ada_in_sigma_held(x, m, s, eps=1e-5):
+    """ada_in with the feature std held constant: the port's limit where sigma == 0."""
+    sigma = jax.lax.stop_gradient(jnp.std(x, axis=(1, 2), ddof=1, keepdims=True))
+    mu = x.mean(axis=(1, 2), keepdims=True)
+    return s[:, None, None, :] * (x - mu) / (sigma + eps) + m[:, None, None, :]
+
+
+def _second_order(first, x, m, s, ct, ct2):
+    """Gradient w.r.t. (x, m, s) of R = sum(gx^2 ct2) + |gm|^2 + |gs|^2, where (gx, gm, gs)
+    is the gradient of sum(sin(first(x, m, s)) ct): a function of ``jax.grad``."""
+    def outer(x, m, s):
+        gx, gm, gs = jax.grad(lambda *a: (jnp.sin(first(*a)) * ct).sum(), argnums=(0, 1, 2))(
+            x, m, s)
+        return (gx * gx * ct2).sum() + (gm * gm).sum() + (gs * gs).sum()
+
+    return [np.asarray(a) for a in jax.grad(outer, argnums=(0, 1, 2))(x, m, s)]
+
+
+@pytest.mark.parametrize("shape,zero_channel,graphless", [
+    ((2, 4, 4, 8), False, False), ((2, 8, 8, 1), False, False), ((2, 4, 4, 8), True, False),
+    ((2, 4, 4, 8), False, True)],
+    ids=["4x4x8", "8x8x1", "4x4x8_zero_variance", "4x4x8_graphless_backward"])
+def test_ada_in_double_backward_matches_jax(shape, zero_channel, graphless, monkeypatch):
+    """The double backward through ``ada_in`` (``AdaINBackward``'s backward) against
+    ``jax.grad`` of a function of ``jax.grad``; each tensor within 1e-4 of its largest
+    entry.  A constant channel (sigma == 0, non-finite in the reference) is held to the
+    reference with sigma held constant, the port's pinned limit, on its own scale.
+    ``graphless``: the first-order backward returns tensors with no autograd graph, as
+    the backward kernel's outputs on the card are; the second order must not need one."""
+    if graphless:
+        def detached_bwd(*args):
+            return tuple(t.detach() for t in ada_in_bwd_ref(*args))
+        monkeypatch.setattr(kadain, "_bwd", detached_bwd)
+    x, m, s, ct = _adain_case(shape, seed=sum(shape) + 1)
+    ct2 = np.random.default_rng(sum(shape) + 2).standard_normal(shape).astype(np.float32)
+    if zero_channel:
+        x[0, :, :, 1] = 0.5  # exactly representable: sigma is exactly 0 on both sides
+    xt = nchw(x).requires_grad_(True)
+    mt, st = (torch.from_numpy(a).requires_grad_(True) for a in (m, s))
+    gx, gm, gs = torch.autograd.grad((torch.sin(ada_in(xt, mt, st)) * nchw(ct)).sum(),
+                                     (xt, mt, st), create_graph=True)
+    r = (gx * gx * nchw(ct2)).sum() + (gm * gm).sum() + (gs * gs).sum()
+    got = [t.detach() for t in torch.autograd.grad(r, (xt, mt, st))]
+    got = [nhwc(got[0]), got[1].numpy(), got[2].numpy()]
+    want = _second_order(jadain.ada_in, x, m, s, ct, ct2)
+    held = _second_order(_jax_ada_in_sigma_held, x, m, s, ct, ct2)
+    pinned = [np.zeros(x.shape, bool), np.zeros(m.shape, bool), np.zeros(s.shape, bool)]
+    if zero_channel:
+        pinned[0][0, :, :, 1] = pinned[1][0, 1] = pinned[2][0, 1] = True
+        assert not np.isfinite(want[0][pinned[0]]).all()
+    for g, w, h, p in zip(got, want, held, pinned):
+        assert np.isfinite(g).all()
+        for sel, ref in ((~p, w), (p, h)):
+            if sel.any():
+                err = np.abs(g[sel] - ref[sel]).max()
+                assert err <= 1e-4 * np.abs(ref[sel]).max(), (err, np.abs(ref[sel]).max())
 
 
 @pytest.mark.parametrize("affine", [False, True], ids=["plain", "affine"])

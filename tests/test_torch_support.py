@@ -56,12 +56,13 @@ def to_numpy(tree):
 
 
 def randomise_norms_and_gammas(tree, rng):
-    """Copy of a Flax params tree with InstanceNorm scale/bias and attention gamma random."""
+    """Copy of a Flax params tree with InstanceNorm scale/bias, attention gamma and a
+    constant input image (``init_img``, all ones at init) random."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
             out[k] = randomise_norms_and_gammas(v, rng)
-        elif k == "gamma" or (k in ("scale", "bias") and "scale" in tree):
+        elif k in ("gamma", "init_img") or (k in ("scale", "bias") and "scale" in tree):
             base = 1.0 if k == "scale" else 0.0
             out[k] = (base + 0.5 * rng.standard_normal(np.shape(v))).astype(np.float32)
         else:
@@ -159,12 +160,23 @@ def test_port_imports_with_jax_blocked():
         "import optimalstrategiesagainstgenerativeattacks_torch.data.prefetch\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.train.multiseed\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.train_multiseed_gim_on_imgs\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.nn.blocks as nb\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.nn.stats\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.nn.init\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.ops.adain\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.ops.image_ops\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.ops.stats\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.train.losses\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.train.utils\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.data.voxceleb_prep\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.prepare_voxceleb_dataset\n"
         "assert round(v.game_value_mnk(1, 5, 10, 10), 6) == 0.921131\n"
         "g.train_step(g.create_state(g.GaussianGameConfig(batch_size=8, src_dim=2), 'cpu'))\n"
         "from optimalstrategiesagainstgenerativeattacks_torch.eval.scorer import roc_auc\n"
         "assert roc_auc([1, 0, 1], [0.3, 0.1, 0.3]) == 1.0\n"
         "b.build_siamese(1, 16)\n"
         "au, im = t.build_models(t.ImageGameConfig(img_size=16, style_dim=32, use_img_att=True))\n"
+        "nb.SGDecoderBlock(4, 2, 3)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -187,3 +199,20 @@ def test_cpu_tensors_use_plain_versions_and_count_no_launch():
     after = (adain.FWD_LAUNCHES.count, adain.BWD_LAUNCHES.count,
              attention.FWD_LAUNCHES.count)
     assert before == after
+
+
+def test_prepare_voxceleb_cli_help_runs_with_jax_blocked():
+    code = (
+        "import runpy, sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'cv2',\n"
+        "             'optimalstrategiesagainstgenerativeattacks_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = ['prepare_voxceleb_dataset', '--help']\n"
+        "runpy.run_module('optimalstrategiesagainstgenerativeattacks_torch.prepare_voxceleb_dataset',"
+        " run_name='__main__')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=REPO, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--src_vid_ds_root" in out.stdout and "--skip_frames" in out.stdout
