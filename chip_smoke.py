@@ -9,8 +9,11 @@ Phases (each prints its lines; the first failure exits non-zero):
               the tensor-core instructions of the bf16 attention kernel
               (cuobjdump);
   3. kernels: each kernel against its plain PyTorch version at every site
-              the flagship and the VoxCeleb train steps and eval batches
-              give it, in bf16 and f32; then, in bf16, the device time of the kernel, its
+              the flagship, the VoxCeleb and the study config's (the
+              multi-seed CLI's defaults) train steps and eval batches give
+              it, in bf16 and f32 (the study config's sites are first
+              recorded from one of its train steps and eval batches and
+              must be the tables'); then, in bf16, the device time of the kernel, its
               plain version and (attention) the one PyTorch call for the
               same function, each call after a write of a 128 MB buffer
               that evicts L2, from torch.profiler's CUDA kernel records
@@ -25,7 +28,9 @@ Phases (each prints its lines; the first failure exits non-zero):
               conv site of one bf16 train step of the flagship, with
               use_img_att, VoxCeleb and the multi-seed CLI's config, run as
               the port runs it, forward and backward, against the same conv
-              in f32 without cuDNN;
+              in f32 without cuDNN, and at each VoxCeleb authenticator site
+              R1's double backward (the gradient of <grad_x conv, v> with
+              respect to the weight and the cotangent) the same way;
   5. R1:      the R1 penalty and the authenticator's parameter gradients at
               the VoxCeleb widths in f32 on the card (kernels, and the
               attention core's backward differentiated again) against the
@@ -101,8 +106,16 @@ Phases (each prints its lines; the first failure exits non-zero):
               stats, ResMLP/ResMLP2, pixel_norm, the pools, freeze + Adam and
               accumulate, f32 card against CPU at width 512
               (``inventory_launches``: the legacy stack's bf16 run).
+ 15. hard study: 400 steps of seed 2 at the study config (img 16, style 64,
+              B16, bf16) through ``train_multiseed_gim_imgs`` on the hard
+              glyph set (``scripts/make_hard_glyph_ds.py`` at its defaults,
+              built in the background from phase 3 on), then the eval grid
+              on its val split: AUC and accuracy of each attacker, steps/s,
+              the launches of the run and of each row; fails on a non-finite
+              metric or a replay AUC under 0.9 (``study_launches``: the
+              training run).
 The second-to-last line is a JSON summary of the kernels, with times per
-flagship step, per VoxCeleb step and per gim-vs-gim eval batch of each
+flagship, VoxCeleb and study step and per gim-vs-gim eval batch of each
 config (sum over sites of ms x launches), and the launches of each run
 (``multiseed_launches``: phase 13's flagship run); the last line is
 {"ok": true, "device": {...}}.
@@ -207,16 +220,44 @@ VOX_EVAL_ATTENTION_SITES = {
     (320, 64, 256, 32): 1,    # env decoder
     (320, 256, 128, 16): 2,   # img2img down and up stages
 }
+# per-step launches at the multi-seed CLI's defaults, the head-to-head studies' config
+# (img 16, style 64, B16, n = k = 5: channels [1, 64, 64], attention at 8x8 and, in the
+# env decoder, 4x4; phase 3 records them from a train step and an eval batch)
+STUDY_ADAIN_SITES = {
+    (80, 64, 4, 4): 11,       # 5 res blocks x 2, up_0 first
+    (80, 64, 8, 8): 2,        # up_0 second; up_1 first, in f32 (the attention's f32 gamma)
+    (80, 1, 16, 16): 1,       # up_1 second
+}
+STUDY_ATTENTION_SITES = {
+    (240, 64, 64, 8): 2,      # authenticator encoders, au phase
+    (160, 64, 64, 8): 2,      # frozen authenticator encoders, im phase
+    (16, 64, 64, 8): 2,       # impersonator encoders
+    (80, 16, 64, 8): 1,       # env decoder
+    (80, 64, 64, 8): 2,       # img2img down and up stages
+}
+STUDY_EVAL_ADAIN_SITES = {
+    (320, 64, 4, 4): 11,
+    (320, 64, 8, 8): 2,
+    (320, 1, 16, 16): 1,
+}
+STUDY_EVAL_ATTENTION_SITES = {
+    (640, 64, 64, 8): 4,      # authenticator encoders, 2 per call
+    (64, 64, 64, 8): 2,       # impersonator encoders on the leaked images
+    (320, 16, 64, 8): 1,      # env decoder
+    (320, 64, 64, 8): 2,      # img2img down and up stages
+}
 AU_CALL_ATTENTION = 2  # K2 launches of one GIM authenticator call
 IM_TYPES = ("gim", "replay", "rnd_src")
 # key prefixes of the kernels' JSON and the unit each sums over; the site
 # tables of each, in this order
 PER_CONFIG = {"": "flagship step", "vox_": "VoxCeleb step",
               "eval_": "flagship eval batch (gim vs gim)",
-              "vox_eval_": "VoxCeleb eval batch (gim vs gim)"}
-ADAIN_TABLES = (ADAIN_SITES, VOX_ADAIN_SITES, EVAL_ADAIN_SITES, VOX_EVAL_ADAIN_SITES)
+              "vox_eval_": "VoxCeleb eval batch (gim vs gim)",
+              "study_": "study step", "study_eval_": "study eval batch (gim vs gim)"}
+ADAIN_TABLES = (ADAIN_SITES, VOX_ADAIN_SITES, EVAL_ADAIN_SITES, VOX_EVAL_ADAIN_SITES,
+                STUDY_ADAIN_SITES, STUDY_EVAL_ADAIN_SITES)
 ATTENTION_TABLES = (ATTENTION_SITES, VOX_ATTENTION_SITES, EVAL_ATTENTION_SITES,
-                    VOX_EVAL_ATTENTION_SITES)
+                    VOX_EVAL_ATTENTION_SITES, STUDY_ATTENTION_SITES, STUDY_EVAL_ATTENTION_SITES)
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2.0 ** -6)}  # (atol, rtol)
 SLICE_TOL = 1e-3  # f32 forward, card vs CPU, TF32 off: |err| <= tol * max(1, max|ref|)
 # f32 R1 penalty and authenticator gradients, card vs CPU, TF32 off: per tensor
@@ -251,7 +292,7 @@ SMALL_SEEDS, SMALL_STEPS, SMALL_TIMED = 3, 10, 10
 MULTISEED_TOL = 1e-4
 MULTISEED_FLIPS = 4  # a tensor's entries whose Adam step may take the other sign (as in the
 # R1 train-step test of the CPU suite)
-N_PHASES = 14
+N_PHASES = 15
 
 # NVIDIA H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -551,6 +592,96 @@ def check_attention(gen: torch.Generator, results: dict, timer: DeviceTimer) -> 
     return times
 
 
+@contextlib.contextmanager
+def kernel_sites():
+    """Record the shape of each kernel launch inside the block, by kernel: AdaIN's
+    (B', C, H, W) and the attention core's (B', N, C, CQ), and the dtypes seen."""
+    from optimalstrategiesagainstgenerativeattacks_torch.kernels import adain as k1
+    from optimalstrategiesagainstgenerativeattacks_torch.kernels import attention as k2
+
+    sites = {"adain_fwd": {}, "adain_bwd": {}, "attention_core_fwd": {}, "dtypes": set()}
+
+    def seen(name, site, dtype):
+        sites[name][site] = sites[name].get(site, 0) + 1
+        sites["dtypes"].add((name, site, dtype_name(dtype)))
+
+    fwd, bwd, attention = k1.ada_in_fwd_cuda, k1.ada_in_bwd_cuda, k2.attention_core_cuda
+
+    def fwd_(x, *args, **kw):
+        seen("adain_fwd", tuple(x.shape), x.dtype)
+        return fwd(x, *args, **kw)
+
+    def bwd_(x, *args, **kw):
+        seen("adain_bwd", tuple(x.shape), x.dtype)
+        return bwd(x, *args, **kw)
+
+    def attention_(f, g, h):
+        seen("attention_core_fwd", (f.shape[0], f.shape[1], h.shape[2], f.shape[2]), h.dtype)
+        return attention(f, g, h)
+
+    k1.ada_in_fwd_cuda, k1.ada_in_bwd_cuda, k2.attention_core_cuda = fwd_, bwd_, attention_
+    try:
+        yield sites
+    finally:
+        k1.ada_in_fwd_cuda, k1.ada_in_bwd_cuda, k2.attention_core_cuda = fwd, bwd, attention
+
+
+def study_config(seeds, outdir: str = "-", dataset_root: str = "-"):
+    """(the multi-seed CLI's parsed defaults for ``seeds``, their ImageGameConfig at the
+    first seed): the head-to-head studies' config."""
+    from optimalstrategiesagainstgenerativeattacks_torch import train_multiseed_gim_on_imgs as tcli
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+
+    args = tcli.build_parser().parse_args(
+        ["-o", outdir, "--dataset_root", dataset_root, "--seeds", *map(str, seeds)])
+    return args, ImageGameConfig.from_dict(dict(vars(args), seed=seeds[0]))
+
+
+def check_study_sites(seed: int) -> None:
+    """Record the kernels' sites in one train step and one eval batch (gim vs gim)
+    of the study config, random weights on random images; fail unless they are the
+    STUDY_* tables'."""
+    from optimalstrategiesagainstgenerativeattacks_torch.eval import authentication as auth
+    from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
+
+    _, cfg = study_config([seed])
+    state = timg.create_state(cfg, *timg.build_models(cfg), cfg.seed, "cuda")
+    rng = np.random.default_rng(seed)
+    s, c = cfg.img_size, cfg.img_channels
+
+    def images(b, n):
+        return torch.from_numpy(rng.integers(0, 256, (b, n, s, s, c), dtype=np.uint8)).cuda()
+
+    batch = {"real_sample": images(cfg.batch_size, cfg.n),
+             "leaked_sample": images(cfg.batch_size, cfg.m),
+             "si_sample": images(cfg.batch_size, cfg.k)}
+    timg.train_step(state, batch)  # the kernels' first launches compile them
+    with kernel_sites() as train:
+        timg.train_step(state, batch)
+    # one batch of the grid's gim-vs-gim row: the authenticator scores the real
+    # sample, the impersonator makes the fake from the leaked one, the
+    # authenticator scores it (eval/scorer.py)
+    dtype = timg.compute_dtype(cfg) or torch.float32
+    au = auth.get_au_function(state.au, dtype, "cuda")
+    im = auth.get_im_function(state.im, dtype, cfg.remove_noise_mean, cfg.n, "cuda")
+    real, si, leaked = (timg.prepare(None, images(EVAL_BATCH, n), "cuda")
+                        for n in (cfg.n, cfg.k, cfg.m))
+    with kernel_sites() as batch_sites:
+        au(real, si)
+        au(im(leaked), si)
+    torch.cuda.synchronize()
+    for what, got, adain, attention in (
+            ("study step", train, STUDY_ADAIN_SITES, STUDY_ATTENTION_SITES),
+            ("study eval batch", batch_sites, STUDY_EVAL_ADAIN_SITES, STUDY_EVAL_ATTENTION_SITES)):
+        want = {"adain_fwd": adain, "adain_bwd": {} if "eval" in what else adain,
+                "attention_core_fwd": attention}
+        f32 = sorted((name, site) for name, site, d in got.pop("dtypes") if d == "f32")
+        print(f"  {what}: recorded sites {got}; in f32: {f32}")
+        if got != want:
+            fail(f"{what}: the kernels' sites {got}, the tables say {want}")
+    del state
+
+
 def add_config(results: dict, prefix: str, tables, times: dict) -> None:
     """Sum the timed sites of one config's per-unit tables into ``results`` (an eval
     batch runs no backward)."""
@@ -676,14 +807,23 @@ def check_slice(seed: int, use_img_att: bool = False) -> None:
 def conv_site_configs(seed: int) -> dict:
     """The configs whose SN conv sites phase 4 checks: the flagship, with
     ``use_img_att``, VoxCeleb and the multi-seed CLI's defaults."""
-    from optimalstrategiesagainstgenerativeattacks_torch import train_multiseed_gim_on_imgs as tcli
     from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
 
-    small = tcli.build_parser().parse_args(["-o", "-", "--dataset_root", "-", "--seeds", "0"])
     return {"flagship": ImageGameConfig(seed=seed),
             "img_att": ImageGameConfig(seed=seed, use_img_att=True),
             "vox": ImageGameConfig(img_size=64, img_channels=3, reg_param=10.0, seed=seed),
-            "cli_small": ImageGameConfig.from_dict(dict(vars(small), seed=seed))}
+            "cli_small": study_config([seed])[1]}
+
+
+def conv_error(names: list, got, want) -> float:
+    """max|got - want| / max|want| of each pair; fail above CONV_TOL; the worst."""
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        err = (a.float() - b).abs().max().item() / b.abs().max().item()
+        if not err <= CONV_TOL:
+            fail(f"{name} off by {err:.3g} of its max (limit {CONV_TOL})")
+        worst = max(worst, err)
+    return worst
 
 
 def check_conv_sites(seed: int) -> None:
@@ -692,7 +832,9 @@ def check_conv_sites(seed: int) -> None:
     and backward, against the same conv in f32 without cuDNN (the native im2col and
     cuBLAS path): max|err| <= CONV_TOL x max|ref| for the output and both gradients.
     cuDNN computes some bf16 convs of one channel wrongly
-    (``nn/blocks.py:conv_one_channel``); this finds any other such site."""
+    (``nn/blocks.py:conv_one_channel``); this finds any other such site.  At the
+    VoxCeleb config each authenticator site also runs R1's double backward (see
+    ``check_conv_double_backward``)."""
     import torch.nn.functional as F
 
     from optimalstrategiesagainstgenerativeattacks_torch.nn.blocks import SNConv, conv2d
@@ -701,15 +843,20 @@ def check_conv_sites(seed: int) -> None:
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     for name, cfg in conv_site_configs(seed).items():
         state = timg.create_state(cfg, *timg.build_models(cfg), cfg.seed, "cuda")
-        sites = {}
+        sites, au_sites = {}, set()
 
-        def record(mod, args):
-            x = args[0]
-            key = (tuple(x.shape), tuple(mod.weight.shape), mod.padding,
-                   x.is_contiguous(memory_format=torch.channels_last))
-            sites[key] = sites.get(key, 0) + 1
+        def record(player):
+            def hook(mod, args):
+                x = args[0]
+                key = (tuple(x.shape), tuple(mod.weight.shape), mod.padding,
+                       x.is_contiguous(memory_format=torch.channels_last))
+                sites[key] = sites.get(key, 0) + 1
+                if player == "au":
+                    au_sites.add(key)
+            return hook
 
-        hooks = [m.register_forward_pre_hook(record) for player in (state.au, state.im)
+        hooks = [m.register_forward_pre_hook(record(p)) for p, player in (("au", state.au),
+                                                                         ("im", state.im))
                  for m in player.modules() if isinstance(m, SNConv)]
         rng = np.random.default_rng(seed)
         s, c = cfg.img_size, cfg.img_channels
@@ -723,13 +870,7 @@ def check_conv_sites(seed: int) -> None:
         del state
         worst = (0.0, None)
         for (xs, ws, pad, cl), count in sites.items():
-            x = torch.randn(xs, device="cuda", generator=gen).to(torch.bfloat16)
-            if cl:
-                x = x.contiguous(memory_format=torch.channels_last)
-            w = (torch.randn(ws, device="cuda", generator=gen) / math.sqrt(math.prod(ws[1:])))
-            bias = torch.randn(ws[0], device="cuda", generator=gen)
-            x.requires_grad_(True)
-            wb = w.to(torch.bfloat16).requires_grad_(True)
+            x, wb, bias = conv_inputs(xs, ws, cl, gen)
             out = conv2d(x, wb, bias.to(torch.bfloat16), pad)
             g = torch.randn(out.shape, device="cuda", generator=gen)
             got = (out, *torch.autograd.grad(out, (x, wb), g.to(out.dtype)))
@@ -738,15 +879,61 @@ def check_conv_sites(seed: int) -> None:
             with torch.backends.cudnn.flags(enabled=False):
                 ref = F.conv2d(xf, wf, bias, padding=pad)
                 want = (ref, *torch.autograd.grad(ref, (xf, wf), g))
-            for what, a, b in zip(("output", "d input", "d weight"), got, want):
-                err = (a.float() - b).abs().max().item() / b.abs().max().item()
-                if not err <= CONV_TOL:
-                    fail(f"conv site {name} x{xs} w{ws}: {what} off by {err:.3g} of its max "
-                         f"(limit {CONV_TOL})")
-                worst = max(worst, (err, f"{what} at x{xs} w{ws}"))
+            err = conv_error([f"conv site {name} x{xs} w{ws}: {what}"
+                              for what in ("output", "d input", "d weight")], got, want)
+            worst = max(worst, (err, f"x{xs} w{ws}"))
         print(f"  {name}: {len(sites)} SN conv sites, {sum(sites.values())} calls a step; worst "
               f"error / max|ref| {worst[0]:.3g} ({worst[1]})")
+        if cfg.reg_param > 0:
+            check_conv_double_backward(name, sorted(au_sites), gen)
         torch.cuda.empty_cache()
+
+
+def conv_inputs(xs, ws, channels_last: bool, gen: torch.Generator) -> tuple:
+    """Random bf16 input (a leaf that needs its gradient) and weight of one conv site,
+    the weight scaled as a spectrally normalised one; the f32 bias."""
+    x = torch.randn(xs, device="cuda", generator=gen).to(torch.bfloat16)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.randn(ws, device="cuda", generator=gen) / math.sqrt(math.prod(ws[1:]))
+    bias = torch.randn(ws[0], device="cuda", generator=gen)
+    return x.requires_grad_(True), w.to(torch.bfloat16).requires_grad_(True), bias
+
+
+def check_conv_double_backward(name: str, sites: list, gen: torch.Generator) -> None:
+    """R1's pattern at each authenticator conv site, in bf16 as the port runs it:
+    y = conv(x, w); gx = grad(y, x, g, create_graph=True); then the gradient of
+    (gx . v).sum() with respect to w and to the cotangent g (through which R1's
+    penalty reaches the layers behind the conv), against the same in f32 without
+    cuDNN, each within CONV_TOL x max|ref|.  gx does not depend on x (a conv is linear
+    in its input), so its gradient with respect to x is zero on both sides."""
+    import torch.nn.functional as F
+
+    from optimalstrategiesagainstgenerativeattacks_torch.nn.blocks import conv2d
+
+    def double_backward(conv, x, w, g, v):
+        (gx,) = torch.autograd.grad(conv(x, w), x, g, create_graph=True)
+        return (gx, *torch.autograd.grad((gx.float() * v).sum(), (w, g)))
+
+    worst = (0.0, None)
+    for xs, ws, pad, cl in sites:
+        x, wb, bias = conv_inputs(xs, ws, cl, gen)
+        out_shape = (xs[0], ws[0], xs[2] + 2 * pad - ws[2] + 1, xs[3] + 2 * pad - ws[3] + 1)
+        g = torch.randn(out_shape, device="cuda", generator=gen).to(torch.bfloat16)
+        v = torch.randn(xs, device="cuda", generator=gen)
+        got = double_backward(lambda x_, w_: conv2d(x_, w_, bias.to(torch.bfloat16), pad),
+                              x, wb, g.requires_grad_(True), v)
+        xf = x.detach().float().requires_grad_(True)
+        wf = wb.detach().float().requires_grad_(True)
+        with torch.backends.cudnn.flags(enabled=False):
+            want = double_backward(lambda x_, w_: F.conv2d(x_, w_, bias, padding=pad),
+                                   xf, wf, g.detach().float().requires_grad_(True), v)
+        err = conv_error([f"R1 double backward, {name} authenticator site x{xs} w{ws}: {what}"
+                          for what in ("gx", "d weight", "d cotangent")], got, want)
+        worst = max(worst, (err, f"x{xs} w{ws}"))
+    print(f"  {name}: R1's conv double backward (bf16 against f32 without cuDNN) at "
+          f"{len(sites)} authenticator SN conv sites; worst error / max|ref| {worst[0]:.3g} "
+          f"({worst[1]})")
 
 
 def run_train(seed: int, n_steps: int, counters, use_img_att: bool = False) -> tuple:
@@ -837,7 +1024,7 @@ def kernel_results() -> dict:
         name: {"name": name, "route": route, "source": src, "replaces": rep,
                "launches": 0, "vox_launches": 0, "eval_launches": 0, "vox_eval_launches": 0,
                "gaussian_launches": 0, "img_att_launches": 0, "multiseed_launches": 0,
-               "inventory_launches": 0,
+               "inventory_launches": 0, "study_launches": 0,
                **{f"{p}launches_per_batch_by_pairing": {pair: n[name] for pair, n in table.items()}
                   for p, table in pairings.items()},
                "max_abs_err": 0.0,
@@ -1308,14 +1495,16 @@ def check_authenticators_card_vs_cpu(agents, ds, n_episodes: int) -> None:
                 torch.from_numpy(want), SLICE_TOL, SLICE_TOL)
 
 
-def run_grid(label: str, ds, gim_dir: str, baseline_type: str, baseline_dir: str, tables,
-             counters, outdir: str) -> dict:
+def run_grid(label: str, ds, gim_dir: str, baseline_type, baseline_dir, tables,
+             counters, outdir: str) -> tuple:
     """``eval_authentication_task`` over ``ds`` in batches of EVAL_BATCH with the
-    calibration columns and the score dumps; checks the CSV, the scores and every
-    launch count, and prints each row's seconds and episodes/s.  Returns the
-    grid's launches."""
+    calibration columns and the score dumps (without a baseline when
+    ``baseline_type`` is None); checks the CSV, the scores and every launch count,
+    and prints each row's seconds and episodes/s.  Returns the grid's launches and
+    its rows."""
     from optimalstrategiesagainstgenerativeattacks_torch.eval import authentication as auth
 
+    n_rows = len(IM_TYPES) * (1 if baseline_type is None else 2)
     n_batches = -(-len(ds) // EVAL_BATCH)
     per_batch = eval_launches_per_batch(*tables, baseline_type)
     csv_path = os.path.join(outdir, f"{label}_results.csv")
@@ -1351,7 +1540,7 @@ def run_grid(label: str, ds, gim_dir: str, baseline_type: str, baseline_dir: str
     t0 = time.perf_counter()
     try:
         rows = auth.eval_authentication_task(
-            ds=ds, m=ds.m, n=ds.n, k=ds.k, batch_size=EVAL_BATCH, num_workers=0,
+            ds=ds, m=ds.m, n=ds.n, k=ds.si, batch_size=EVAL_BATCH, num_workers=0,
             gim_exp_dir=gim_dir, csv_file_path=csv_path, baseline_exp_dir=baseline_dir,
             baseline_type=baseline_type, calibrate_q=0.95, dump_scores_dir=dump_dir,
             device=EVAL_DEVICE)
@@ -1365,7 +1554,7 @@ def run_grid(label: str, ds, gim_dir: str, baseline_type: str, baseline_dir: str
     with open(csv_path, newline="") as f:
         lines = list(csv.reader(f))
     header = [""] + list(auth.CSV_COLS) + list(auth.CAL_COLS)
-    if lines[0] != header or len(lines) != 7 or len(rows) != 6 or len(seen) != 6:
+    if lines[0] != header or len(lines) != n_rows + 1 or not len(rows) == len(seen) == n_rows:
         fail(f"{label} grid: CSV header {lines[0]} and {len(lines) - 1} rows, "
              f"{len(rows)} rows returned")
     want_total = {name: 0 for name in launches}
@@ -1394,13 +1583,13 @@ def run_grid(label: str, ds, gim_dir: str, baseline_type: str, baseline_dir: str
         for name, n in want.items():
             want_total[name] += n
     agents_s = sum(a for _, a, _ in seen)
-    print(f"  {label} grid: {grid_s:.3f} s for 6 rows of {len(ds)} episodes "
+    print(f"  {label} grid: {grid_s:.3f} s for {n_rows} rows of {len(ds)} episodes "
           f"({n_batches} batches of {EVAL_BATCH}, the last padded), "
-          f"{6 * len(ds) / grid_s:.1f} episodes/s; building the agents {agents_s:.3f} s; "
+          f"{n_rows * len(ds) / grid_s:.1f} episodes/s; building the agents {agents_s:.3f} s; "
           f"launches {launches}  [{smi_line()}]")
     if launches != want_total or copies:
         fail(f"{label} grid: launches {launches}, expected {want_total}; {copies} layout copies")
-    return launches
+    return launches, rows
 
 
 def run_eval_flagship(cfg, counters) -> dict:
@@ -1447,7 +1636,7 @@ def run_eval_flagship(cfg, counters) -> dict:
     del model
 
     ds = SeededEpisodes(cfg, EVAL_EPISODES, per_class, seed + 6)
-    launches = run_grid("flagship", ds, gim_dir, "siamese", siam_dir,
+    launches, _ = run_grid("flagship", ds, gim_dir, "siamese", siam_dir,
                         (EVAL_ADAIN_SITES, EVAL_ATTENTION_SITES), counters, outdir)
     gim_args = dict(auth.load_args(gim_dir), compute_dtype="float32")
     siam_ckpt, siam_args = auth.get_exp_args_from_dir(siam_dir)
@@ -1489,7 +1678,7 @@ def run_eval_vox(seed: int, counters, vox_dir: str, vox_cfg) -> dict:
 
     per_class = vox_cfg.m + vox_cfg.n + vox_cfg.k + 1
     ds = SeededEpisodes(vox_cfg, VOX_EVAL_EPISODES, per_class, seed + 9)
-    launches = run_grid("VoxCeleb", ds, vox_dir, "arcface", arc_dir,
+    launches, _ = run_grid("VoxCeleb", ds, vox_dir, "arcface", arc_dir,
                         (VOX_EVAL_ADAIN_SITES, VOX_EVAL_ATTENTION_SITES), counters, outdir)
     arc_ckpt, arc_args = auth.get_exp_args_from_dir(arc_dir)
     check_authenticators_card_vs_cpu((
@@ -1867,20 +2056,16 @@ def run_multiseed_small(seed: int, counters) -> None:
     SMALL_SEEDS seeds: a single-seed step's launches and steps/s, then
     ``train_multiseed_gim_imgs`` (launches: seeds x steps x one step's) and timed
     multi-steps."""
-    from optimalstrategiesagainstgenerativeattacks_torch import train_multiseed_gim_on_imgs as tcli
     from optimalstrategiesagainstgenerativeattacks_torch.data.device_sampler import (
         DeviceEpisodicLoader,
     )
     from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
     from optimalstrategiesagainstgenerativeattacks_torch.train import multiseed as tms
-    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
 
     outdir = os.path.join(BUILD_DIR, "chip_smoke_multiseed_small")
     shutil.rmtree(outdir, ignore_errors=True)
     seeds = [seed + i for i in range(SMALL_SEEDS)]
-    args = tcli.build_parser().parse_args(
-        ["-o", outdir, "--dataset_root", SeededEpisodes.root, "--seeds", *map(str, seeds)])
-    cfg = ImageGameConfig.from_dict(vars(args))
+    args, cfg = study_config(seeds, outdir, SeededEpisodes.root)
     ds = SeededEpisodes(cfg, *FEED_SETS["flagship"], seed + 11, FEED_EXAMPLES_PER_CLASS)
     print(f"  config (the CLI's defaults): B={cfg.batch_size} img={cfg.img_size}x{cfg.img_size}x"
           f"{cfg.img_channels} style={cfg.style_dim} m={cfg.m} n={cfg.n} k={cfg.k} "
@@ -2336,6 +2521,112 @@ def run_inventory(seed: int, counters) -> dict:
     return launches
 
 
+# ---- phase 15: a short training run on the hard glyph set
+
+HARD_DIR = os.path.join(BUILD_DIR, "chip_smoke_hard")
+HARD_SEED, HARD_STEPS = 2, 400  # the head-to-head's first seed and first checkpoint
+HARD_REPLAY_AUC = 0.9  # at step 400 all 11 recorded seeds of both implementations read >= 0.979
+HARD_SET_TIMEOUT = 900  # seconds to wait for the set's build (about 70 on one core)
+
+
+def study_script():
+    """``scripts/torch_hard_head_to_head.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_hard_head_to_head.py")
+    spec = importlib.util.spec_from_file_location("torch_hard_head_to_head", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def start_hard_set() -> subprocess.Popen:
+    """Start building phase 15's set (the generator at its defaults, the study's
+    command) in the background; the process is stopped at exit if still running."""
+    import atexit
+
+    shutil.rmtree(HARD_DIR, ignore_errors=True)
+    os.makedirs(HARD_DIR)
+    with open(os.path.join(HARD_DIR, "make_set.log"), "w") as log:
+        proc = subprocess.Popen(study_script().set_command(os.path.join(HARD_DIR, "ds")),
+                                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+                                stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc
+
+
+def run_hard_study(counters, set_proc: subprocess.Popen) -> dict:
+    """Phase 15: HARD_STEPS steps of seed HARD_SEED at the study config on the hard
+    glyph set through ``train_multiseed_gim_imgs``, then the eval grid on its val
+    split; fails on a non-finite metric, a launch count off the STUDY_* tables or a
+    replay AUC under HARD_REPLAY_AUC.  Returns the training run's launches."""
+    from optimalstrategiesagainstgenerativeattacks_torch import train_multiseed_gim_on_imgs as tcli
+    from optimalstrategiesagainstgenerativeattacks_torch.eval import authentication as auth
+    from optimalstrategiesagainstgenerativeattacks_torch.train import multiseed as tms
+
+    t_phase = time.perf_counter()
+    ds_root, outdir = os.path.join(HARD_DIR, "ds"), os.path.join(HARD_DIR, "runs")
+    if set_proc.wait(timeout=HARD_SET_TIMEOUT) != 0:
+        fail(f"the hard set's build exited {set_proc.returncode} "
+             f"({os.path.join(HARD_DIR, 'make_set.log')})")
+    h2h = study_script()
+    digest, n_images = h2h.set_digest(ds_root)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), h2h.DOCS_DIR,
+                           "port_hard_set.json")) as f:
+        study = json.load(f)["sha256_paths_and_pixels"]
+    print(f"  set: {n_images} images, sha256 of paths and pixels {digest} "
+          f"({'the' if digest == study else 'NOT the'} study's set); ready "
+          f"{time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
+
+    args, cfg = study_config([HARD_SEED], outdir, ds_root)
+    ds = tcli.make_train_dataset(cfg)
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    _, readings = tms.train_multiseed_gim_imgs(cfg, [HARD_SEED], ds, outdir, HARD_STEPS,
+                                               save_every=HARD_STEPS, log_every=50,
+                                               args=vars(args), device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {c.name: c.count for c in counters}
+    copies = launches.pop("adain_nhwc_copy")
+    want = {"adain_fwd": sum(STUDY_ADAIN_SITES.values()) * HARD_STEPS,
+            "adain_bwd": sum(STUDY_ADAIN_SITES.values()) * HARD_STEPS,
+            "attention_core_fwd": sum(STUDY_ATTENTION_SITES.values()) * HARD_STEPS}
+    print(f"  {HARD_STEPS} steps of seed {HARD_SEED} ({len(ds.data)} classes): {train_s:.1f} s, "
+          f"{HARD_STEPS / train_s:.3f} steps/s with the state's build and the first compiles; "
+          f"launches {launches}, expected {want}; layout copies {copies}  [{smi_line()}]")
+    if launches != want or copies:
+        fail(f"hard study: launches {launches}, expected {want}; {copies} layout copies")
+    if not all(np.isfinite(a).all() for _, a in readings):
+        fail("hard study: non-finite au_acc")
+
+    val = auth.get_dataset(ds_root, "val", "omniglot", example_cnt_per_class=5,
+                           img_channels=cfg.img_channels, img_size=cfg.img_size,
+                           m=cfg.m, n=cfg.n, k=cfg.k)
+    _, rows = run_grid("hard", val, os.path.join(outdir, f"seed_{HARD_SEED}"), None, None,
+                       (STUDY_EVAL_ADAIN_SITES, STUDY_EVAL_ATTENTION_SITES), counters, HARD_DIR)
+    auth._RESTORE_CACHE.clear()
+    by_im = {r["im_type"]: r for r in rows}
+    print(f"  step {HARD_STEPS}, val split ({len(val)} episodes): " + "; ".join(
+        f"{im} AUC {by_im[im]['auc']:.4f} acc {by_im[im]['acc']:.4f}" for im in IM_TYPES)
+        + f" (replay gate: AUC >= {HARD_REPLAY_AUC})  [{smi_line()}]")
+    if not all(math.isfinite(r[k]) for r in rows for k in ("acc", "acc_on_fake", "acc_on_real")):
+        fail("hard study: a non-finite accuracy")
+    if not by_im["replay"]["auc"] >= HARD_REPLAY_AUC:
+        fail(f"hard study: replay AUC {by_im['replay']['auc']} under {HARD_REPLAY_AUC}")
+    shutil.rmtree(HARD_DIR, ignore_errors=True)
+    print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2371,10 +2662,12 @@ def main() -> None:
           flush=True)
 
     results = kernel_results()
+    hard_set = start_hard_set()  # phase 15's set, built while phases 3-14 run
 
-    print(f"[3/{N_PHASES}] kernels vs plain versions at the flagship and VoxCeleb sites, train "
-          f"and eval (f32 atol/rtol {TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}; "
-          "pass: max|err| <= atol + rtol*max|ref|)", flush=True)
+    print(f"[3/{N_PHASES}] kernels vs plain versions at the flagship, VoxCeleb and study "
+          f"sites, train and eval (f32 atol/rtol {TOL[torch.float32]}, bf16 "
+          f"{TOL[torch.bfloat16]}; pass: max|err| <= atol + rtol*max|ref|)", flush=True)
+    check_study_sites(args.seed)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timer = DeviceTimer()
     times = {**check_adain(gen, results, timer), **check_attention(gen, results, timer)}
@@ -2469,6 +2762,12 @@ def main() -> None:
           f"freeze and accumulate at width 512", flush=True)
     for name, n in run_inventory(args.seed, counters).items():
         results[name]["inventory_launches"] = n
+
+    print(f"[15/{N_PHASES}] hard study: {HARD_STEPS} steps of seed {HARD_SEED} at the study "
+          f"config on the hard glyph set (scripts/make_hard_glyph_ds.py at its defaults), "
+          f"then the eval grid on its val split", flush=True)
+    for name, n in run_hard_study(counters, hard_set).items():
+        results[name]["study_launches"] = n
 
     print(smi_line())
     print(json.dumps({"kernels": list(results.values())}))

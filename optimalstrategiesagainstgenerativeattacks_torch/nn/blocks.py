@@ -522,11 +522,20 @@ class ResBlockUp(nn.Module):
                               dtype=dtype)
 
     def forward(self, x):
+        """NCHW -> NCHW at twice the size; the sum in f32 (see below)."""
         res = self.conv_l1(upscale2d(x))
         out = leaky_relu(self.in1(x))
         out = self.conv_r1(upscale2d(out))
         out = self.conv_r2(leaky_relu(self.in2(out)))
-        return out + res
+        # The env decoder's first block takes a 1x1 input: its in1 sees one pixel
+        # and gives its bias, so the right branch is the same for every sample,
+        # and the skip branch, spatially constant, carries all of the noise.  The
+        # next block's in1 subtracts that constant.  Rounded to bf16 first, the
+        # sum keeps a rounding error that differs with every noise draw, which
+        # the norm scales up to unit variance: bf16 games then trained to another
+        # equilibrium (the hard-glyph head-to-head).  The convs that read the
+        # sum round it to their compute dtype themselves.
+        return out.float() + res.float()
 
 
 class AdaResBlock2(nn.Module):

@@ -29,9 +29,13 @@ def custom_std(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 
 
 def unbiased_var(x: torch.Tensor) -> torch.Tensor:
-    """Unbiased sample variance over axis 1: the sum of centred squares over N - 1."""
-    centred = x - x.mean(dim=1, keepdim=True)
-    return (centred * centred).sum(dim=1) / (x.shape[1] - 1)
+    """Unbiased sample variance over axis 1: the sum of centred squares over N - 1,
+    computed in f32 and returned in x's dtype, as ``jnp.var`` computes a bf16 or f16
+    input.  In bf16 the centred values of a set whose spread is small beside its
+    mean would keep only a few bits, and the authenticator's set std with them."""
+    f = x.float()
+    centred = f - f.mean(dim=1, keepdim=True)
+    return ((centred * centred).sum(dim=1) / (x.shape[1] - 1)).to(x.dtype)
 
 
 def std_stat(x: torch.Tensor) -> torch.Tensor:

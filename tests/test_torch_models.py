@@ -131,6 +131,31 @@ def test_bf16_players_match_jax(players, inputs):
     np.testing.assert_allclose(logits.float().numpy(), want_logits, rtol=5e-2, atol=5e-2)
 
 
+@pytest.mark.parametrize("in1_bias", [0.01, 0.05, 0.3, 1.0])
+def test_bf16_env_decoder_second_norm_drops_the_input_as_in_exact_arithmetic(in1_bias):
+    """The env decoder's first block takes a 1x1 input: its in1 sees one pixel, so
+    its right branch is the same for every input, and its skip branch is
+    spatially constant.  The second block's in1 subtracts that constant, so in
+    exact arithmetic its output does not depend on the input at all.  In bf16 the
+    first block's sum must reach that norm unrounded: rounded, its rounding error,
+    which differs with every input, is what the norm scales up (the bf16 game then
+    trained to another equilibrium in the hard-glyph head-to-head)."""
+    from optimalstrategiesagainstgenerativeattacks_torch.nn.init import init_module
+
+    cfg = small_cfg(compute_dtype="bfloat16")
+    _, im = timg.build_models(cfg)
+    init_module(im, torch.Generator().manual_seed(0))
+    dec = im.env_decoder
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        # a bias as training moves it: the right branch then varies over the pixels
+        dec.up_0.in1.bias.copy_(in1_bias * torch.randn(dec.up_0.in1.bias.shape, generator=gen))
+        common = 3.0 * torch.randn(1, cfg.style_dim, generator=gen)
+        x = (common + 1e-2 * torch.randn(8, cfg.style_dim, generator=gen)).to(torch.bfloat16)
+        normed = dec.up_1.in1(dec.up_0(x[:, :, None, None])).float()
+    assert (normed - normed[:1]).abs().max() <= 1e-3 * normed.abs().max()
+
+
 def test_build_models_rejects_unported_options():
     # every model option of the reference is ported: use_img_att builds img_att ...
     _, im = timg.build_models(small_cfg(use_img_att=True))

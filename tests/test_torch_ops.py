@@ -197,6 +197,23 @@ def test_set_stats_match_jax(sample_size):
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("stat", ["custom_std", "logvar_stat", "mean_stat"])
+def test_set_stats_of_bf16_sets_match_jax(stat):
+    """A bf16 set whose spread is small beside its mean, as the authenticator's env
+    features of nearly coinciding fakes are: ``jnp.var`` computes a bf16 input in
+    f32 and rounds the result once, so the port's statistic must lie within one
+    bf16 rounding of the reference's (its centred squares taken in bf16 missed by
+    up to the statistic itself)."""
+    rng = np.random.default_rng(3)
+    x = (2.5 + 0.02 * rng.standard_normal((8, 5, 64))).astype(np.float32)
+    t = torch.from_numpy(x).to(torch.bfloat16)
+    got = getattr(tstats, stat)(t)
+    want = np.asarray(getattr(jstats, stat)(jnp.asarray(t.float().numpy(), jnp.bfloat16)),
+                      np.float32)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -7, atol=0)
+
+
 def _jax_attention_core(f, g, h):
     """The jnp core of nn/blocks.py SelfAttention (:895-898), kept in f32."""
     attn = jnp.einsum("bic,bjc->bij", f, g, preferred_element_type=jnp.float32)
