@@ -30,7 +30,14 @@ Phases (each prints its lines; the first failure exits non-zero):
               the port runs it, forward and backward, against the same conv
               in f32 without cuDNN, and at each VoxCeleb authenticator site
               R1's double backward (the gradient of <grad_x conv, v> with
-              respect to the weight and the cotangent) the same way;
+              respect to the weight and the cotangent) the same way; then
+              the bf16 rounding sites (port/bf16_sites.py) at the flagship
+              and VoxCeleb widths: each chain in bf16 on the card against
+              the same chain in f32 on the CPU, mean error at most 1.5 x
+              the CPU bf16 chain's (which tests/test_torch_bf16_sites.py
+              holds to XLA's compile of the JAX chain), where XLA keeps the
+              value in f32 under the card's error with the value rounded,
+              and where it rounds equal to that;
   5. R1:      the R1 penalty and the authenticator's parameter gradients at
               the VoxCeleb widths in f32 on the card (kernels, and the
               attention core's backward differentiated again) against the
@@ -142,12 +149,16 @@ import time
 import numpy as np
 import torch
 
-# per-step launches at the flagship config, by site shape
-ADAIN_SITES = {  # (B', C, H, W): launches per step (forward; backward the same)
-    (640, 512, 4, 4): 11,     # 5 res blocks x 2, up_0 first
-    (640, 256, 8, 8): 2,      # up_0 second, up_1 first
-    (640, 128, 16, 16): 2,    # up_1 second, up_2 first
-    (640, 1, 32, 32): 1,      # up_2 second
+# per-step launches at the flagship config, by site shape and input dtype.  An AdaIN
+# reads its conv in f32 (SNConv's f32_out) and the up blocks' sums and the attention's
+# output in f32, as XLA's compile of the JAX step does; only the first up block's first
+# AdaIN reads a bf16 value, the res stack's loop carry (port/bf16_sites.py)
+ADAIN_SITES = {  # (B', C, H, W, dtype): launches per step (forward; backward the same)
+    (640, 512, 4, 4, "f32"): 10,   # 5 res blocks x 2
+    (640, 512, 4, 4, "bf16"): 1,   # up_0 first
+    (640, 256, 8, 8, "f32"): 2,    # up_0 second, up_1 first
+    (640, 128, 16, 16, "f32"): 2,  # up_1 second, up_2 first (behind the attention)
+    (640, 1, 32, 32, "f32"): 1,    # up_2 second
 }
 ATTENTION_SITES = {  # (B', N, C, CQ): forward launches per step
     (1920, 64, 256, 32): 2,   # authenticator encoders, au phase
@@ -159,11 +170,12 @@ ATTENTION_SITES = {  # (B', N, C, CQ): forward launches per step
 }
 # per-step launches at the VoxCeleb config (64x64x3), by site shape
 VOX_ADAIN_SITES = {
-    (640, 512, 4, 4): 11,     # 5 res blocks x 2, up_0 first
-    (640, 256, 8, 8): 2,      # up_0 second, up_1 first
-    (640, 128, 16, 16): 2,    # up_1 second, up_2 first
-    (640, 64, 32, 32): 2,     # up_2 second, up_3 first
-    (640, 3, 64, 64): 1,      # up_3 second
+    (640, 512, 4, 4, "f32"): 10,   # 5 res blocks x 2
+    (640, 512, 4, 4, "bf16"): 1,   # up_0 first
+    (640, 256, 8, 8, "f32"): 2,    # up_0 second, up_1 first
+    (640, 128, 16, 16, "f32"): 2,  # up_1 second, up_2 first (behind the attention)
+    (640, 64, 32, 32, "f32"): 2,   # up_2 second, up_3 first
+    (640, 3, 64, 64, "f32"): 1,    # up_3 second
 }
 VOX_ATTENTION_SITES = {
     (1920, 256, 128, 16): 2,  # authenticator encoders, au phase (and under R1's double backward)
@@ -195,10 +207,11 @@ ARCFACE_BATCH = 128
 EVAL_DEVICE = "cuda"  # of phases 8 and 9
 FEED_DEVICE = "cuda"  # of phases 12 and 13
 EVAL_ADAIN_SITES = {  # per impersonator call
-    (320, 512, 4, 4): 11,
-    (320, 256, 8, 8): 2,
-    (320, 128, 16, 16): 2,
-    (320, 1, 32, 32): 1,
+    (320, 512, 4, 4, "f32"): 10,
+    (320, 512, 4, 4, "bf16"): 1,
+    (320, 256, 8, 8, "f32"): 2,
+    (320, 128, 16, 16, "f32"): 2,
+    (320, 1, 32, 32, "f32"): 1,
 }
 EVAL_ATTENTION_SITES = {
     (640, 64, 256, 32): 4,    # authenticator encoders, 2 per call
@@ -208,11 +221,12 @@ EVAL_ATTENTION_SITES = {
     (320, 256, 128, 16): 1,   # img2img up stage
 }
 VOX_EVAL_ADAIN_SITES = {
-    (320, 512, 4, 4): 11,
-    (320, 256, 8, 8): 2,
-    (320, 128, 16, 16): 2,
-    (320, 64, 32, 32): 2,
-    (320, 3, 64, 64): 1,
+    (320, 512, 4, 4, "f32"): 10,
+    (320, 512, 4, 4, "bf16"): 1,
+    (320, 256, 8, 8, "f32"): 2,
+    (320, 128, 16, 16, "f32"): 2,
+    (320, 64, 32, 32, "f32"): 2,
+    (320, 3, 64, 64, "f32"): 1,
 }
 VOX_EVAL_ATTENTION_SITES = {
     (640, 256, 128, 16): 4,   # authenticator encoders, 2 per call
@@ -224,9 +238,10 @@ VOX_EVAL_ATTENTION_SITES = {
 # (img 16, style 64, B16, n = k = 5: channels [1, 64, 64], attention at 8x8 and, in the
 # env decoder, 4x4; phase 3 records them from a train step and an eval batch)
 STUDY_ADAIN_SITES = {
-    (80, 64, 4, 4): 11,       # 5 res blocks x 2, up_0 first
-    (80, 64, 8, 8): 2,        # up_0 second; up_1 first, in f32 (the attention's f32 gamma)
-    (80, 1, 16, 16): 1,       # up_1 second
+    (80, 64, 4, 4, "f32"): 10,     # 5 res blocks x 2
+    (80, 64, 4, 4, "bf16"): 1,     # up_0 first
+    (80, 64, 8, 8, "f32"): 2,      # up_0 second; up_1 first (behind the attention)
+    (80, 1, 16, 16, "f32"): 1,     # up_1 second
 }
 STUDY_ATTENTION_SITES = {
     (240, 64, 64, 8): 2,      # authenticator encoders, au phase
@@ -236,9 +251,10 @@ STUDY_ATTENTION_SITES = {
     (80, 64, 64, 8): 2,       # img2img down and up stages
 }
 STUDY_EVAL_ADAIN_SITES = {
-    (320, 64, 4, 4): 11,
-    (320, 64, 8, 8): 2,
-    (320, 1, 16, 16): 1,
+    (320, 64, 4, 4, "f32"): 10,
+    (320, 64, 4, 4, "bf16"): 1,
+    (320, 64, 8, 8, "f32"): 2,
+    (320, 1, 16, 16, "f32"): 1,
 }
 STUDY_EVAL_ATTENTION_SITES = {
     (640, 64, 64, 8): 4,      # authenticator encoders, 2 per call
@@ -265,6 +281,10 @@ SLICE_TOL = 1e-3  # f32 forward, card vs CPU, TF32 off: |err| <= tol * max(1, ma
 R1_TOL = 1e-3
 # bf16 SN convs on the card against f32 without cuDNN: several bf16 roundings of a sum
 CONV_TOL = 2e-2
+# the bf16 rounding sites: the card's bf16 chain's mean error against the CPU's f32
+# chain, at most this times the CPU bf16 chain's (the CPU tests' ratio to XLA's)
+SITES_RATIO = 1.5
+SITES_BIAS_SCALE = 30.0  # conv and linear biases: the rounding of an offset value shows
 
 # the Gaussian game at the README's Nash-check config (d=10, m1 n5 k10, head x8, B=4096)
 GAUSS_CONFIG = dict(src_dim=10, m=1, n=5, k=10, au_hidden_scale=8, batch_size=4096,
@@ -473,26 +493,29 @@ def union(*tables) -> list:
 
 
 def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> dict:
-    """Check both AdaIN kernels at every flagship and VoxCeleb site; time the bf16 sites.
+    """Check both AdaIN kernels at every flagship and VoxCeleb site shape in f32 and in
+    bf16; time each site in the dtype the steps give it.
 
-    Returns {(B', C, H, W): {kernel: (ms, plain ms, bound ms, bound by, library ms)}}.
+    Returns {(B', C, H, W, dtype): {kernel: (ms, plain ms, bound ms, bound by, library ms)}}.
     """
     import torch.nn.functional as F
 
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import adain as k1
 
     sites, times = [], {}
+    timed = set(union(*ADAIN_TABLES))
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
-        for b, c, h, w in union(*ADAIN_TABLES):
+        for b, c, h, w in dict.fromkeys(site[:4] for site in timed):
             def rand(*shape):
                 return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
+            site = (b, c, h, w, dtype_name(dtype))
             x = rand(b, c, h, w).contiguous(memory_format=torch.channels_last)
             g = rand(b, c, h, w).contiguous(memory_format=torch.channels_last)
             ms, ss = rand(b, c), rand(b, c)
             tag = f"adain {dtype_name(dtype)} [{b},{h},{w},{c}]"
-            print(f"  {tag} ({per_step_text((b, c, h, w), *ADAIN_TABLES)})")
+            print(f"  {tag} ({per_step_text(site, *ADAIN_TABLES) or 'no step runs it'})")
             fwd_err = compare("fwd", k1.ada_in_fwd_cuda(x, ms, ss), k1.ada_in_ref(x, ms, ss),
                               atol, rtol)
             got = k1.ada_in_bwd_cuda(x, ss, g)
@@ -501,7 +524,7 @@ def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> dict
                           for n, a, r_ in zip(("dx", "dmean", "dstd"), got, ref))
             results["adain_fwd"]["max_abs_err"] = max(results["adain_fwd"]["max_abs_err"], fwd_err)
             results["adain_bwd"]["max_abs_err"] = max(results["adain_bwd"]["max_abs_err"], bwd_err)
-            if dtype != torch.bfloat16:  # only the train step's dtype is timed
+            if site not in timed:  # only the dtype a step gives the site is timed
                 continue
             timer.add(f"{tag} fwd", lambda x=x, ms=ms, ss=ss: k1.ada_in_fwd_cuda(x, ms, ss))
             timer.add(f"{tag} fwd plain", lambda x=x, ms=ms, ss=ss: k1.ada_in_ref(x, ms, ss))
@@ -512,23 +535,24 @@ def check_adain(gen: torch.Generator, results: dict, timer: DeviceTimer) -> dict
             xn = x.contiguous().view(1, b * c, h, w)
             timer.add(f"{tag} instance_norm", lambda xn=xn, ms=ms, ss=ss: F.instance_norm(
                 xn, weight=ss.reshape(-1), bias=ms.reshape(-1)))
-            sites.append((tag, (b, c, h, w)))
+            sites.append((tag, site, dtype))
 
-    print("  timing the bf16 sites (device time, L2 evicted before each call)", flush=True)
+    print("  timing the sites (device time, L2 evicted before each call)", flush=True)
     t = timer.run()
-    for tag, (b, c, h, w) in sites:
-        print(f"  {tag} ({per_step_text((b, c, h, w), *ADAIN_TABLES)})")
-        times[(b, c, h, w)] = {}
+    for tag, site, dtype in sites:
+        b, c, h, w, _ = site
+        print(f"  {tag} ({per_step_text(site, *ADAIN_TABLES)})")
+        times[site] = {}
         for d, name, n_bytes, flops in (
-                ("fwd", "adain_fwd", k1.ada_in_fwd_bytes(b, h, w, c, torch.bfloat16),
+                ("fwd", "adain_fwd", k1.ada_in_fwd_bytes(b, h, w, c, dtype),
                  k1.ada_in_fwd_flops(b, h, w, c)),
-                ("bwd", "adain_bwd", k1.ada_in_bwd_bytes(b, h, w, c, torch.bfloat16),
+                ("bwd", "adain_bwd", k1.ada_in_bwd_bytes(b, h, w, c, dtype),
                  k1.ada_in_bwd_flops(b, h, w, c))):
             k_ms, p_ms = t[f"{tag} {d}"][0], t[f"{tag} {d} plain"][0]
             b_ms, b_by = bound(n_bytes, flops, "f32")
             plan = k1.tile_config(b, h * w, c, k1.PER_THREAD[d])
             site_line(d, k_ms, p_ms, b_ms, b_by, note=f"; tile {tile_text(plan)}")
-            times[(b, c, h, w)][name] = (k_ms, p_ms, b_ms, b_by, None)
+            times[site][name] = (k_ms, p_ms, b_ms, b_by, None)
         in_ms, in_ops = t[f"{tag} instance_norm"]
         print(f"    nearest library op, not the same function (biased variance, eps inside "
               f"the sqrt): F.instance_norm over [1, B'C, H, W] NCHW {in_ms:.4f} ms, kernels "
@@ -594,8 +618,9 @@ def check_attention(gen: torch.Generator, results: dict, timer: DeviceTimer) -> 
 
 @contextlib.contextmanager
 def kernel_sites():
-    """Record the shape of each kernel launch inside the block, by kernel: AdaIN's
-    (B', C, H, W) and the attention core's (B', N, C, CQ), and the dtypes seen."""
+    """Record the site of each kernel launch inside the block, by kernel: AdaIN's
+    (B', C, H, W, input dtype) and the attention core's (B', N, C, CQ), and the
+    dtypes seen."""
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import adain as k1
     from optimalstrategiesagainstgenerativeattacks_torch.kernels import attention as k2
 
@@ -608,11 +633,11 @@ def kernel_sites():
     fwd, bwd, attention = k1.ada_in_fwd_cuda, k1.ada_in_bwd_cuda, k2.attention_core_cuda
 
     def fwd_(x, *args, **kw):
-        seen("adain_fwd", tuple(x.shape), x.dtype)
+        seen("adain_fwd", (*x.shape, dtype_name(x.dtype)), x.dtype)
         return fwd(x, *args, **kw)
 
     def bwd_(x, *args, **kw):
-        seen("adain_bwd", tuple(x.shape), x.dtype)
+        seen("adain_bwd", (*x.shape, dtype_name(x.dtype)), x.dtype)
         return bwd(x, *args, **kw)
 
     def attention_(f, g, h):
@@ -824,6 +849,54 @@ def conv_error(names: list, got, want) -> float:
             fail(f"{name} off by {err:.3g} of its max (limit {CONV_TOL})")
         worst = max(worst, err)
     return worst
+
+
+def check_bf16_sites(seed: int) -> None:
+    """Each bf16 rounding site's chain (port/bf16_sites.py; random weights, norms and
+    gammas randomised, biases of scale SITES_BIAS_SCALE) in bf16 on the card against
+    the chain in f32 on the CPU: the mean error at most SITES_RATIO x the CPU bf16
+    chain's; where XLA's compile keeps the value in f32, under the card's error with
+    the value rounded; where XLA rounds, equal to that chain's output."""
+    import copy
+
+    from optimalstrategiesagainstgenerativeattacks_torch.nn import blocks as tblocks
+    from optimalstrategiesagainstgenerativeattacks_torch.nn.init import init_module
+    from optimalstrategiesagainstgenerativeattacks_torch.port import bf16_sites as bs
+
+    gen = torch.Generator().manual_seed(seed + 7)
+    for cfg in (bs.FLAGSHIP, bs.VOX):
+        players16, players32 = cfg.players(), cfg.players(None)
+        named = bs.by_name(cfg)
+        for name in bs.KEEPS_F32 + bs.ROUNDS:
+            case = named[name]
+            chain = copy.deepcopy(bs.TChain(case.port(*players16), case.upsample))
+            chain32 = copy.deepcopy(bs.TChain(case.port(*players32), case.upsample))
+            with torch.no_grad():
+                init_module(chain, gen)
+                randomise_norms_and_gammas(chain, gen)
+                for m in chain.modules():
+                    if isinstance(m, (tblocks.Dense, tblocks.SNConv)):
+                        m.bias.copy_(SITES_BIAS_SCALE * torch.randn(m.bias.shape, generator=gen))
+                chain32.load_state_dict(chain.state_dict())
+                xs = [bs.to_port(x) for x in bs.inputs(case, cfg, np.random.default_rng(seed))]
+                ref = chain32(*xs).float()
+                cpu = chain(*xs).float()
+                chain.cuda()
+                xs = [x.cuda() for x in xs]
+                card = chain(*xs).float().cpu()
+                with bs.hooks(chain, bs.variants(case)["port_rounded"]):
+                    rounded = chain(*xs).float().cpu()
+            err = {k: (v - ref).abs().mean().item()
+                   for k, v in (("card", card), ("cpu", cpu), ("rounded", rounded))}
+            keeps = name in bs.KEEPS_F32
+            ok = err["card"] <= SITES_RATIO * err["cpu"] and (
+                err["card"] < err["rounded"] if keeps else torch.equal(card, rounded))
+            print(f"  {cfg.name} {case.name}: mean error card bf16 {err['card']:.4e}, CPU bf16 "
+                  f"{err['cpu']:.4e}, card with the value rounded {err['rounded']:.4e} (XLA "
+                  f"{'keeps f32' if keeps else 'rounds'}; |ref| {ref.abs().mean().item():.3g})")
+            if not ok:
+                fail(f"bf16 site {cfg.name} {case.name}: errors {err}")
+        del players16, players32
 
 
 def check_conv_sites(seed: int) -> None:
@@ -2678,9 +2751,11 @@ def main() -> None:
     print(f"[4/{N_PHASES}] slice parity: flagship widths, f32, TF32 off, B=2, fixed z "
           f"(tol {SLICE_TOL} x max(1, max|ref|)); then every SN conv site of a bf16 step of "
           f"{', '.join(conv_site_configs(args.seed))} against f32 without cuDNN (tol "
-          f"{CONV_TOL} x max|ref|)", flush=True)
+          f"{CONV_TOL} x max|ref|); then the bf16 rounding sites, card bf16 against CPU f32 "
+          f"(mean error <= {SITES_RATIO} x the CPU bf16 chain's)", flush=True)
     check_slice(args.seed)
     check_conv_sites(args.seed)
+    check_bf16_sites(args.seed)
 
     print(f"[5/{N_PHASES}] R1 parity: VoxCeleb widths (64x64x3, style 512), f32, TF32 off, B=2 "
           f"(penalty tol {R1_TOL} x max|ref|; each gradient {R1_TOL} x its max|ref| + "

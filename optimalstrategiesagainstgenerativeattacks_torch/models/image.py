@@ -63,7 +63,9 @@ class Encoder(nn.Module):
         for i in range(n_down):
             if i == att_loc:
                 self.att = SelfAttention(channels[i], dtype=dtype)
-            setattr(self, f"down_{i}", ResBlockDown(channels[i], channels[i + 1], dtype=dtype))
+            # the block before the attention in f32: the attention's residual add reads it
+            setattr(self, f"down_{i}", ResBlockDown(channels[i], channels[i + 1], dtype=dtype,
+                                                    f32_sum=i == att_loc - 1))
 
     def forward(self, x):
         """NCHW images -> [B', style]."""
@@ -127,9 +129,11 @@ class Img2ImgDownModule(nn.Module):
             if i == att_loc:
                 self.att = SelfAttention(channels[i], dtype=dtype)
             conv = dict(conv_size=9, padding=4) if i == 0 else {}
+            # each norm reads its block's sum in f32 and gives the compute dtype
             setattr(self, f"down_{i}",
-                    ResBlockDown(channels[i], channels[i + 1], dtype=dtype, **conv))
-            setattr(self, f"in_{i}", InstanceNorm(channels[i + 1]))
+                    ResBlockDown(channels[i], channels[i + 1], dtype=dtype, f32_sum=True,
+                                 **conv))
+            setattr(self, f"in_{i}", InstanceNorm(channels[i + 1], dtype=dtype))
 
     def forward(self, x):
         for i in range(self.n_down):
@@ -169,9 +173,11 @@ class Img2ImgAdaInUpModule(nn.Module):
         for i in range(n_up):
             if i == self.att_loc:
                 self.att = SelfAttention(channels[i], dtype=dtype)
-            conv = dict(conv_size=9, padding=4) if i == n_up - 1 else {}
+            last = i == n_up - 1
+            conv = dict(conv_size=9, padding=4) if last else {}
+            # the next AdaIN (or the attention) reads the sum in f32; tanh reads it rounded
             setattr(self, f"up_{i}", AdaResBlockUp2(channels[i], channels[i + 1], style_dim,
-                                                    dtype=dtype, **conv))
+                                                    dtype=dtype, f32_sum=not last, **conv))
 
     def forward(self, x, style):
         for i in range(self.n_up):

@@ -11,6 +11,16 @@ and linear casts its input and its (normalised) weight to ``dtype`` when one
 is given, so a bf16 game runs bf16 convs and matmuls with f32 parameters and
 f32 normalisation statistics.  No ``torch.autocast``.
 
+Where XLA's default compile of the JAX step keeps a bf16 value in f32 for
+the op that reads it (``xla_allow_excess_precision``), the port keeps it in
+f32 too: a residual sum read by a norm or by the attention's residual add
+(``f32_sum``), and a conv's bias added in f32 when a norm reads the conv
+(``SNConv(f32_out=True)``: the conv rounds, its sum with the bias does not).
+Where XLA rounds (a sum read by a global max pool, tanh or the AdaIN res
+stack's loop carry; a norm's output read by the attention), the port rounds.
+``tests/test_torch_bf16_sites.py`` holds each site to XLA's compile;
+``scripts/torch_bf16_sites.py`` prints the readings.
+
 The blocks run in the plain torch order (conv then pool, upsample then conv,
 a channel concat for two-part inputs).  The reference folds some of these
 into single convs (exact algebra: ``nn/blocks.py`` ``_fold_kernel_for_*``,
@@ -108,10 +118,15 @@ class SNConv(nn.Module):
     Buffers ``u`` [out] and ``v`` [in*kh*kw] hold the power-iteration state;
     ``power_iterate_`` advances them (once per player per step) and the
     forward uses sigma = u^T W v from the stored vectors.
+
+    ``f32_out``: for a conv whose output a norm reads.  The conv rounds to
+    ``dtype`` and the bias (rounded to ``dtype``) is added in f32, so the norm
+    reads the sum unrounded, as XLA compiles the JAX conv followed by a norm.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 padding: int = 0, dtype: Optional[torch.dtype] = None, eps: float = 1e-12):
+                 padding: int = 0, dtype: Optional[torch.dtype] = None, eps: float = 1e-12,
+                 f32_out: bool = False):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, kernel_size, kernel_size)
@@ -122,6 +137,7 @@ class SNConv(nn.Module):
         self.padding = padding
         self.dtype = dtype
         self.eps = eps
+        self.f32_out = f32_out
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -138,6 +154,8 @@ class SNConv(nn.Module):
         b = self.bias
         if self.dtype is not None:
             x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
+            if self.f32_out:
+                return conv2d(x, w, None, self.padding).float() + b.float()[:, None, None]
         return conv2d(x, w, b, self.padding)
 
 
@@ -165,13 +183,18 @@ def conv_one_channel(x, w, b, padding: int):
 
 
 class InstanceNorm(nn.Module):
-    """InstanceNorm2d with affine ``weight``/``bias`` (Flax ``scale``/``bias``)."""
+    """InstanceNorm2d with affine ``weight``/``bias`` (Flax ``scale``/``bias``).
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    The output is in the input's dtype, or in ``dtype`` when one is given: the
+    norm's output rounded to the compute dtype where XLA rounds it (the img2img
+    down stage's norms, which read an f32 sum)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.eps = eps
+        self.dtype = dtype
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -179,7 +202,8 @@ class InstanceNorm(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
-        return instance_norm(x, self.weight, self.bias, self.eps)
+        out = instance_norm(x, self.weight, self.bias, self.eps)
+        return out if self.dtype is None else out.to(self.dtype)
 
 
 class Flatten(nn.Module):
@@ -455,22 +479,25 @@ class SGDisBlock(nn.Module):
 
 
 class ResBlockDown(nn.Module):
-    """SN residual down block: left 1x1 conv -> pool; right lrelu, conv, lrelu, conv, pool."""
+    """SN residual down block: left 1x1 conv -> pool; right lrelu, conv, lrelu, conv, pool.
+
+    ``f32_sum``: the sum in f32, for a block read by a norm or the attention."""
 
     def __init__(self, in_channels: int, out_channels: int, conv_size: int = 3,
-                 padding: int = 1, dtype: Optional[torch.dtype] = None):
+                 padding: int = 1, dtype: Optional[torch.dtype] = None, f32_sum: bool = False):
         super().__init__()
         self.conv_l1 = SNConv(in_channels, out_channels, 1, padding=0, dtype=dtype)
         self.conv_r1 = SNConv(in_channels, out_channels, conv_size, padding=padding,
                               dtype=dtype)
         self.conv_r2 = SNConv(out_channels, out_channels, conv_size, padding=padding,
                               dtype=dtype)
+        self.f32_sum = f32_sum
 
     def forward(self, x):
         res = avg_pool2d(self.conv_l1(x))
         out = self.conv_r1(leaky_relu(x))
         out = avg_pool2d(self.conv_r2(leaky_relu(out)))
-        return res + out
+        return res.float() + out.float() if self.f32_sum else res + out
 
 
 class SelfAttention(nn.Module):
@@ -516,7 +543,7 @@ class ResBlockUp(nn.Module):
         self.conv_l1 = SNConv(in_channels, out_channels, 1, padding=0, dtype=dtype)
         self.in1 = InstanceNorm(in_channels)
         self.conv_r1 = SNConv(in_channels, out_channels, conv_size, padding=padding,
-                              dtype=dtype)
+                              dtype=dtype, f32_out=True)
         self.in2 = InstanceNorm(out_channels)
         self.conv_r2 = SNConv(out_channels, out_channels, conv_size, padding=padding,
                               dtype=dtype)
@@ -539,7 +566,10 @@ class ResBlockUp(nn.Module):
 
 
 class AdaResBlock2(nn.Module):
-    """AdaIN residual block; style mapped by four linears to two (mean, std) pairs."""
+    """AdaIN residual block; style mapped by four linears to two (mean, std) pairs.
+
+    The AdaINs read their convs' outputs in f32 (``SNConv(f32_out=True)``); the sum
+    is rounded to ``dtype``, as the JAX res stack's loop carry is."""
 
     def __init__(self, channels: int, style_dim: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -547,25 +577,29 @@ class AdaResBlock2(nn.Module):
         self.lin1_std = Dense(style_dim, channels, dtype=dtype)
         self.lin2_mean = Dense(style_dim, channels, dtype=dtype)
         self.lin2_std = Dense(style_dim, channels, dtype=dtype)
-        self.conv1 = SNConv(channels, channels, 3, padding=1, dtype=dtype)
-        self.conv2 = SNConv(channels, channels, 3, padding=1, dtype=dtype)
+        self.conv1 = SNConv(channels, channels, 3, padding=1, dtype=dtype, f32_out=True)
+        self.conv2 = SNConv(channels, channels, 3, padding=1, dtype=dtype, f32_out=True)
+        self.dtype = dtype
 
     def forward(self, x, style):
         res = x
         x = ada_in(self.conv1(x), self.lin1_mean(style), self.lin1_std(style))
         x = self.conv2(leaky_relu(x))
-        x = ada_in(x, self.lin2_mean(style), self.lin2_std(style))
-        return x + res
+        x = ada_in(x, self.lin2_mean(style), self.lin2_std(style)) + res
+        return x if self.dtype is None else x.to(self.dtype)
 
 
 class AdaResBlockUp2(nn.Module):
     """AdaIN residual 2x up block.
 
     left: upsample -> 1x1 conv; right: AdaIN, lrelu, upsample, conv, AdaIN, lrelu, conv.
+    The second AdaIN reads its conv in f32; ``f32_sum``: the sum in f32, for a
+    block read by the next block's AdaIN or the attention.
     """
 
     def __init__(self, in_channels: int, out_channels: int, style_dim: int,
-                 conv_size: int = 3, padding: int = 1, dtype: Optional[torch.dtype] = None):
+                 conv_size: int = 3, padding: int = 1, dtype: Optional[torch.dtype] = None,
+                 f32_sum: bool = False):
         super().__init__()
         self.lin1_mean = Dense(style_dim, in_channels, dtype=dtype)
         self.lin1_std = Dense(style_dim, in_channels, dtype=dtype)
@@ -573,16 +607,17 @@ class AdaResBlockUp2(nn.Module):
         self.lin2_std = Dense(style_dim, out_channels, dtype=dtype)
         self.conv_l1 = SNConv(in_channels, out_channels, 1, padding=0, dtype=dtype)
         self.conv_r1 = SNConv(in_channels, out_channels, conv_size, padding=padding,
-                              dtype=dtype)
+                              dtype=dtype, f32_out=True)
         self.conv_r2 = SNConv(out_channels, out_channels, conv_size, padding=padding,
                               dtype=dtype)
+        self.f32_sum = f32_sum
 
     def forward(self, x, style):
         res = self.conv_l1(upscale2d(x))
         out = leaky_relu(ada_in(x, self.lin1_mean(style), self.lin1_std(style)))
         out = self.conv_r1(upscale2d(out))
-        out = leaky_relu(ada_in(out, self.lin2_mean(style), self.lin2_std(style)))
-        return self.conv_r2(out) + res
+        out = self.conv_r2(leaky_relu(ada_in(out, self.lin2_mean(style), self.lin2_std(style))))
+        return out.float() + res.float() if self.f32_sum else out + res
 
 
 class AdaResBlock(nn.Module):

@@ -7,6 +7,8 @@ hold the port's AUCs to the JAX package's recorded ones.
         [--csv_dir docs/hard_head_to_head] [--n_steps 4999] [--save_every 400]
         [--eval_steps 400 800 ...]
     python scripts/torch_hard_head_to_head.py --report   # the table and the bar only
+    python scripts/torch_hard_head_to_head.py --vox [--seeds 1] [--n_steps 2500] ...
+    python scripts/torch_hard_head_to_head.py --vox --report
 
 1. The set: ``scripts/make_hard_glyph_ds.py`` with its own defaults (28
    alphabets x 20 characters, 3 alphabets for val, 20 images a class, 32 px,
@@ -32,6 +34,30 @@ hold the port's AUCs to the JAX package's recorded ones.
    seeds' [min, max] at that step, both rounded to 3 decimals as the table
    prints them; and, where the port has them, seeds 7-9 against the JAX
    seeds 7-9 at each step of theirs through 4800.
+
+``--vox``: the VoxCeleb-shaped R1 game against the JAX package's hard-vox run
+(``docs/hardvox_run/``: one seed of the VoxCeleb2 config, scored every 2500
+steps with ``scripts/eval_hardvox_grid.sh``).
+1. The set: ``scripts/make_hard_vox_ds.py`` at its defaults (230 identities,
+   200 train / 30 val, x 3 videos x 20 frames, 64 px, seed 0) into
+   ``build/hard_vox64``; its digest goes into ``<csv_dir>/port_hardvox_set.json``.
+2. Training: the port's ``train_gim_on_imgs`` CLI at the VoxCeleb2 config of
+   the JAX CLI's docstring (``--dataset_type voxceleb2 --img_size 64
+   --img_channels 3 --au_lr 1e-4 --im_lr 1e-4 --env_noise_mapping_lr 1e-6
+   --reg_param 10``), B=128, bf16, ``--device_data on``, 20 episodes a class
+   an epoch (the JAX run's 14879 steps in 160 epochs are 93 steps an epoch:
+   600 train videos x 20 / 128), as many epochs as reach ``--n_steps``, a
+   checkpoint at ``--n_steps``; the JAX CLI's defaults otherwise, one process
+   a seed, one after another.  ``--cudnn_benchmark`` runs the CLI with cuDNN
+   picking each conv's algorithm by timing it (as XLA autotunes the JAX
+   package's convs; runs are then not bit-reproducible): on the H100 the
+   VoxCeleb step takes ~1.26 s instead of ~1.52, and 2500 steps fit one hour.
+3. Eval: the port's eval CLI with the flags of ``scripts/eval_hardvox_grid.sh``
+   (voxceleb2, 64 px, 3 channels, m1 n5 k5) on the checkpoint at ``--n_steps``,
+   into ``<csv_dir>/port_hardvox_s<seed>_eval_<step:08d>.csv``.
+4. The table of the JAX run's CSVs and the port's, then the bar at step 2500:
+   gim and replay AUC at least the JAX run's lowest over its six checkpoints,
+   rnd_src AUC inside its [min, max] over them.
 """
 
 from __future__ import annotations
@@ -69,30 +95,43 @@ LATE_STEPS = (400, 800, 1200, 2000, 2800, 3600, 4400, 4800)
 EVAL_STEPS = (400, 800, 1200, 2000, 2800, 3600, 4400, 4800, 4999)
 CSV_NAME = re.compile(r"(jax|ref|port)_hard_s(\d+)_eval_(\d+)\.csv$")
 
+VOX_DOCS_DIR = "docs/hard_vox_head_to_head"
+JAX_VOX_DIR = "docs/hardvox_run"  # the JAX run's grids: eval_step<step:08d>.csv
+MAKE_VOX_SET = "scripts/make_hard_vox_ds.py"
+VOX_TRAIN_MODULE = "optimalstrategiesagainstgenerativeattacks_torch.train_gim_on_imgs"
+EVAL_MODULE = "optimalstrategiesagainstgenerativeattacks_torch.eval_gim_on_authentication"
+# the VoxCeleb2 config of the JAX CLI's docstring (train_gim_on_imgs.py:7-8)
+VOX_CONFIG = ["--dataset_type", "voxceleb2", "--img_channels", "3", "--au_lr", "1e-4",
+              "--im_lr", "1e-4", "--env_noise_mapping_lr", "1e-6", "--reg_param", "10"]
+VOX_EXAMPLES_PER_CLASS = 20  # 93 steps an epoch, as the JAX run's 14879 steps in 160 epochs
+VOX_BAR_STEP = 2500
+VOX_CSV_NAME = re.compile(r"port_hardvox_s(\d+)_eval_(\d+)\.csv$")
+JAX_VOX_CSV_NAME = re.compile(r"eval_step(\d+)\.csv$")
 
-def set_command(ds_root: str) -> list:
+
+def set_command(ds_root: str, make_set: str = MAKE_SET) -> list:
     """The set's command: the generator's own defaults, into ``ds_root``."""
-    return [sys.executable, MAKE_SET, "--out", ds_root]
+    return [sys.executable, make_set, "--out", ds_root]
 
 
-def build_set(ds_root: str) -> bool:
+def build_set(ds_root: str, make_set: str = MAKE_SET) -> bool:
     """Run the generator unless ``ds_root`` holds a set; True if it ran.  It writes
     into a sibling directory renamed on success, so a cut run leaves no half set."""
     if os.path.isdir(os.path.join(ds_root, "train")):
         return False
     tmp = ds_root.rstrip("/") + ".partial"
     shutil.rmtree(tmp, ignore_errors=True)
-    subprocess.run(set_command(tmp), check=True, cwd=REPO)
+    subprocess.run(set_command(tmp, make_set), check=True, cwd=REPO)
     os.rename(tmp, ds_root)
     return True
 
 
-def set_digest(ds_root: str) -> tuple:
+def set_digest(ds_root: str, ext: str = "png") -> tuple:
     """(SHA-256 hex over each image's relative path and decoded pixels in path order,
-    image count): independent of how the PNGs were compressed."""
+    image count): independent of how the images were compressed."""
     from PIL import Image
 
-    paths = sorted(glob.glob(os.path.join(ds_root, "*", "*", "*", "*.png")))
+    paths = sorted(glob.glob(os.path.join(ds_root, "**", f"*.{ext}"), recursive=True))
     h = hashlib.sha256()
     for p in paths:
         h.update(os.path.relpath(p, ds_root).encode())
@@ -245,25 +284,174 @@ def report(rows: dict) -> bool:
     return met
 
 
+def record_set(ds_root: str, csv_dir: str, name: str, make_set: str, ext: str,
+               built: bool, seconds: float) -> None:
+    """Print the set's digest and write it, with its command, to ``csv_dir/name``."""
+    digest, n_images = set_digest(ds_root, ext)
+    print(f"set {ds_root}: {'built' if built else 'found'} ({seconds:.1f} s), {n_images} "
+          f"images, sha256 {digest}", flush=True)
+    os.makedirs(csv_dir, exist_ok=True)
+    with open(os.path.join(csv_dir, name), "w") as f:
+        json.dump({"command": ["python"] + set_command(ds_root, make_set)[1:],
+                   "images": n_images, "sha256_paths_and_pixels": digest}, f, indent=1)
+        f.write("\n")
+
+
+def vox_csv_path(csv_dir: str, seed: int, step: int) -> str:
+    return os.path.join(csv_dir, f"port_hardvox_s{seed}_eval_{step:08d}.csv")
+
+
+def train_vox(seed: int, ds_root: str, outdir: str, n_steps: int, device: str,
+              sizes: list, cudnn_benchmark: bool = False) -> str:
+    """One seed of the VoxCeleb2 config through the port's CLI, to ``n_steps``;
+    returns its experiment directory."""
+    n_train = len(glob.glob(os.path.join(ds_root, "train", "*", "*")))  # one class a video
+    batch = int(sizes[sizes.index("--batch_size") + 1])
+    per_epoch = n_train * VOX_EXAMPLES_PER_CLASS // batch
+    exp = os.path.join(outdir, f"seed_{seed}")
+    run = (["-c", "import runpy, sys, torch; torch.backends.cudnn.benchmark = True; "
+                  f"runpy.run_module('{VOX_TRAIN_MODULE}', run_name='__main__')"]
+           if cudnn_benchmark else ["-m", VOX_TRAIN_MODULE])
+    cmd = [sys.executable, *run, "--dataset_root", ds_root, "-o", exp,
+           *VOX_CONFIG, *sizes, "--compute_dtype", "bfloat16", "--device_data", "on",
+           "--ds_n_examples_per_cls", str(VOX_EXAMPLES_PER_CLASS), "--seed", str(seed),
+           # the loop numbers its steps from 0: the epochs run past step n_steps
+           "--n_epochs", str(n_steps // per_epoch + 1), "--save_every", str(n_steps),
+           "--device", device]
+    os.makedirs(outdir, exist_ok=True)
+    print(" ".join(cmd[1:]), flush=True)
+    t0 = time.perf_counter()
+    with open(os.path.join(outdir, f"seed_{seed}.log"), "w") as log:
+        proc = subprocess.run(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    lines = Path(outdir, f"seed_{seed}.log").read_text().splitlines()
+    if proc.returncode != 0:
+        print("\n".join(lines[-30:]))
+        raise SystemExit(f"seed {seed}: training failed")
+    print(f"seed {seed}: {per_epoch} steps an epoch, {n_steps} steps and on to the epoch's "
+          f"end in {time.perf_counter() - t0:.1f} s; " + "; ".join(lines[-2:]), flush=True)
+    return exp
+
+
+def eval_vox(exp: str, seed: int, step: int, ds_root: str, csv_dir: str, device: str,
+             img_size: int) -> str:
+    """The eval CLI on the checkpoint at ``step``, flags of ``eval_hardvox_grid.sh``."""
+    path = vox_csv_path(csv_dir, seed, step)
+    os.makedirs(csv_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", EVAL_MODULE, "--ds_root", ds_root,
+                    "--dataset_type", "voxceleb2", "--img_size", str(img_size),
+                    "--img_channels", "3", "--m", "1", "--n", "5", "--k", "5",
+                    "--gim_exp_dir", exp, "--specific_model", f"model_{step:08d}",
+                    "--csv_file_path", path, "--device", device], check=True, cwd=REPO)
+    shutil.copyfile(os.path.join(exp, "args.json"),
+                    os.path.join(csv_dir, f"port_hardvox_s{seed}_args.json"))
+    print(f"seed {seed} step {step}: {path} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return path
+
+
+def load_vox_aucs(*dirs) -> dict:
+    """{(impl, step, attacker): {seed: auc}} of the JAX run's CSVs (seed 0: its seed
+    was not recorded) and the port's ``port_hardvox_`` CSVs in ``dirs``."""
+    rows = defaultdict(dict)
+    for path in sorted(glob.glob(os.path.join(JAX_VOX_DIR, "*.csv"))):
+        m = JAX_VOX_CSV_NAME.search(path)
+        if m:
+            _read_aucs(path, rows, "jax", int(m.group(1)), 0)
+    for d in dirs:
+        for path in sorted(glob.glob(os.path.join(d, "*.csv"))):
+            m = VOX_CSV_NAME.search(os.path.basename(path))
+            if m:
+                _read_aucs(path, rows, "port", int(m.group(2)), int(m.group(1)))
+    return rows
+
+
+def _read_aucs(path: str, rows: dict, impl: str, step: int, seed: int) -> None:
+    with open(path) as f:
+        for r in csv.DictReader(f):
+            if r["au_type"] == "gim":
+                rows[(impl, step, r["im_type"])][seed] = float(r["auc"])
+
+
+def vox_verdict(rows: dict, step: int = VOX_BAR_STEP) -> list:
+    """Each port seed's AUC at ``step`` against the JAX run's checkpoints: gim and
+    replay at least the lowest, rnd_src inside [min, max]."""
+    out = []
+    for a in ATTACKERS:
+        jax = [v for (impl, _, att), seeds in rows.items() if impl == "jax" and att == a
+               for v in seeds.values()]
+        for seed, auc in sorted(rows.get(("port", step, a), {}).items()):
+            lo, hi = min(jax), (max(jax) if a == "rnd_src" else 1.0)
+            out.append({"step": step, "attacker": a, "seed": seed, "port": auc,
+                        "jax_min": lo, "jax_max": hi, "ok": bool(lo <= auc <= hi)})
+    return out
+
+
+def vox_report(rows: dict) -> bool:
+    """Print the table and the bar of ``load_vox_aucs``' rows; True when every reading
+    of every port seed at the bar step meets it."""
+    print("\n".join(table(rows)))
+    checks = vox_verdict(rows)
+    for c in checks:
+        print(f"bar step {c['step']} {c['attacker']} seed {c['seed']}: port {c['port']:.4f}, "
+              f"JAX [{c['jax_min']:.4f}, {c['jax_max']:.4f}]: "
+              f"{'inside' if c['ok'] else 'MISSED'}")
+    met = bool(checks) and all(c["ok"] for c in checks)
+    print(f"bar: {'met' if met else 'missed or not read'} at {len(checks)} readings")
+    return met
+
+
+def main_vox(args) -> None:
+    if args.report:
+        vox_report(load_vox_aucs(VOX_DOCS_DIR, args.csv_dir))
+        return
+    t0 = time.perf_counter()
+    built = build_set(args.ds_root, MAKE_VOX_SET)
+    record_set(args.ds_root, args.csv_dir, "port_hardvox_set.json", MAKE_VOX_SET, "jpg", built,
+               time.perf_counter() - t0)
+    sizes = ["--img_size", str(args.img_size), "--style_dim", str(args.style_dim),
+             "--batch_size", str(args.batch_size)]
+    for seed in args.seeds:
+        exp = train_vox(seed, args.ds_root, args.outdir, args.n_steps, args.device, sizes,
+                        args.cudnn_benchmark)
+        eval_vox(exp, seed, args.n_steps, args.ds_root, args.csv_dir, args.device,
+                 args.img_size)
+    vox_report(load_vox_aucs(VOX_DOCS_DIR, args.csv_dir))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seeds", type=int, nargs="+", default=[2, 3, 4])
+    ap.add_argument("--vox", action="store_true",
+                    help="the VoxCeleb-shaped R1 game against the JAX hard-vox run")
+    ap.add_argument("--seeds", type=int, nargs="+", default=None,
+                    help="default: 2 3 4 (glyphs), 1 (--vox: the JAX CLI's default seed)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--ds_root", default="build/hard_glyphs32")
-    ap.add_argument("--outdir", default="build/hard_head_to_head",
-                    help="experiment directories (seed_<s>/args.json, ckpts/) and logs")
-    ap.add_argument("--csv_dir", default=DOCS_DIR)
-    ap.add_argument("--n_steps", type=int, default=4999)
+    ap.add_argument("--ds_root", default=None,
+                    help="default: build/hard_glyphs32, or build/hard_vox64 with --vox")
+    ap.add_argument("--outdir", default=None,
+                    help="experiment directories (seed_<s>/args.json, ckpts/) and logs; "
+                         "default build/hard_head_to_head or build/hard_vox_head_to_head")
+    ap.add_argument("--csv_dir", default=None,
+                    help=f"default {DOCS_DIR}, or {VOX_DOCS_DIR} with --vox")
+    ap.add_argument("--n_steps", type=int, default=None, help="default 4999, or 2500 (--vox)")
     ap.add_argument("--save_every", type=int, default=400)
     ap.add_argument("--eval_steps", type=int, nargs="+", default=list(EVAL_STEPS))
+    ap.add_argument("--img_size", type=int, default=64, help="--vox")
+    ap.add_argument("--style_dim", type=int, default=512, help="--vox")
+    ap.add_argument("--batch_size", type=int, default=128, help="--vox")
+    ap.add_argument("--cudnn_benchmark", action="store_true",
+                    help="--vox: cuDNN times its conv algorithms in the training process")
     ap.add_argument("--report", action="store_true",
                     help="print the table and the bar of the CSVs present, and stop")
     args = ap.parse_args(argv)
+    vox = args.vox
+    args.seeds = args.seeds or ([1] if vox else [2, 3, 4])
+    args.ds_root = args.ds_root or ("build/hard_vox64" if vox else "build/hard_glyphs32")
+    args.outdir = args.outdir or ("build/hard_vox_head_to_head" if vox
+                                  else "build/hard_head_to_head")
+    args.csv_dir = args.csv_dir or (VOX_DOCS_DIR if vox else DOCS_DIR)
+    args.n_steps = args.n_steps or (VOX_BAR_STEP if vox else 4999)
     os.chdir(REPO)  # the paths are the checkout's, as the CSVs record them
-    if args.report:
-        report(load_aucs(DOCS_DIR, args.csv_dir))
-        return
-    if args.device == "cuda":
+    if args.device == "cuda" and not args.report:
         import torch
 
         if not torch.cuda.is_available():
@@ -271,17 +459,17 @@ def main(argv=None) -> None:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip(), flush=True)
+    if vox:
+        main_vox(args)
+        return
+    if args.report:
+        report(load_aucs(DOCS_DIR, args.csv_dir))
+        return
 
     t0 = time.perf_counter()
     built = build_set(args.ds_root)
-    digest, n_images = set_digest(args.ds_root)
-    print(f"set {args.ds_root}: {'built' if built else 'found'} "
-          f"({time.perf_counter() - t0:.1f} s), {n_images} images, sha256 {digest}", flush=True)
-    os.makedirs(args.csv_dir, exist_ok=True)
-    with open(os.path.join(args.csv_dir, "port_hard_set.json"), "w") as f:
-        json.dump({"command": ["python"] + set_command(args.ds_root)[1:], "images": n_images,
-                   "sha256_paths_and_pixels": digest}, f, indent=1)
-        f.write("\n")
+    record_set(args.ds_root, args.csv_dir, "port_hard_set.json", MAKE_SET, "png", built,
+               time.perf_counter() - t0)
 
     train_seeds(args.seeds, args.ds_root, args.outdir, args.n_steps, args.save_every,
                 args.device)

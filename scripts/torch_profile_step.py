@@ -2,6 +2,7 @@
 
     python scripts/torch_profile_step.py [--config flagship|vox|gaussian|legacy]
                                          [--warm N] [--steps N] [--trace PATH.json.gz]
+                                         [--time] [--cudnn_benchmark]
 
 Builds the port's game state from a seed at the flagship config (B=128,
 32x32x1, style 512, bf16), the VoxCeleb config (64x64x3, R1 with
@@ -20,13 +21,18 @@ stack, B'=640, bf16: power iteration, forward, backward, Adam):
     kernels by name, and the ops (with four levels of their callers) that
     launched the most device time.
 The profiler adds host time, so host ms here exceed chip_smoke.py's.  With
-``--trace`` the Chrome trace is written there.  Needs one NVIDIA GPU.
+``--trace`` the Chrome trace is written there.  ``--time`` times the steps
+without the profiler instead (wall clock up to the final synchronize, as
+``chip_smoke.py`` phases 6 and 7 do) and prints ms/step and steps/s;
+``--cudnn_benchmark`` lets cuDNN pick its algorithms by timing them.  Needs
+one NVIDIA GPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import itertools
+import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -44,6 +50,7 @@ from optimalstrategiesagainstgenerativeattacks_torch.utils.config import (  # no
     ImageGameConfig,
 )
 
+SMI = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
 CONFIGS = {
     "flagship": {},
     # the VoxCeleb2 paper hparams (train_gim_on_imgs.py:6-8)
@@ -101,9 +108,12 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, help="write the Chrome trace here (.json.gz)")
+    ap.add_argument("--time", action="store_true", help="time the steps, no profiler")
+    ap.add_argument("--cudnn_benchmark", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    torch.backends.cudnn.benchmark = args.cudnn_benchmark
 
     if args.config == "legacy":
         import chip_smoke as cs
@@ -147,6 +157,17 @@ def main() -> None:
         def step():
             timg.train_step(state, batches[state.step % 2])
     torch.cuda.synchronize()
+    if args.time:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+        s = (time.perf_counter() - t0) / args.steps
+        card = subprocess.run(SMI, capture_output=True, text=True).stdout.strip()
+        print(f"{args.config}: {args.steps} steps after {args.warm}, cudnn.benchmark "
+              f"{args.cudnn_benchmark}: {s * 1e3:.2f} ms/step, {1 / s:.4f} steps/s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+        return
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):

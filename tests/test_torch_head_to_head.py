@@ -194,3 +194,49 @@ def test_bf16_parts_runs_the_named_submodules_in_f32():
     assert fake.shape == (2, 2, 16, 16, 1) and torch.isfinite(fake.float()).all()
     with pytest.raises(SystemExit):
         parts.with_f32_parts(timg.build_models, ["env_decoder"])(cfg)
+
+
+def test_vox_rehearsal_on_the_cpu(tmp_path, monkeypatch):
+    """The --vox mode at a tiny size: a few identities of 16 px from
+    ``scripts/make_hard_vox_ds.py``, the port's CLI for 3 steps (5 to the epoch's
+    end), the eval CLI's grid of the step-3 checkpoint, and ``--report`` over the
+    committed CSVs with the bar's verdict."""
+    ds = tmp_path / "ds"
+    subprocess.run([sys.executable, h2h.MAKE_VOX_SET, "--out", str(ds), "--n_identities", "4",
+                    "--val_identities", "2", "--videos_per_identity", "2",
+                    "--frames_per_video", "12", "--img_size", "16"],
+                   check=True, cwd=REPO, capture_output=True)
+    out, csvs = tmp_path / "runs", tmp_path / "csv"
+    monkeypatch.chdir(REPO)
+    h2h.main(["--vox", "--device", "cpu", "--ds_root", str(ds), "--outdir", str(out),
+              "--csv_dir", str(csvs), "--n_steps", "3", "--img_size", "16", "--style_dim", "32",
+              "--batch_size", "16"])
+    assert sorted(p.name for p in csvs.iterdir()) == [
+        "port_hardvox_s1_args.json", "port_hardvox_s1_eval_00000003.csv",
+        "port_hardvox_set.json"]
+    with open(csvs / "port_hardvox_s1_eval_00000003.csv", newline="") as f:
+        lines = list(csv.reader(f))
+    with open(REPO / h2h.JAX_VOX_DIR / "eval_step00002500.csv", newline="") as f:
+        assert lines[0] == next(csv.reader(f))
+    assert [line[1:3] for line in lines[1:]] == [["gim", im] for im in h2h.ATTACKERS]
+    assert all(0.0 <= float(line[-1]) <= 1.0 for line in lines[1:])
+    args = json.loads((csvs / "port_hardvox_s1_args.json").read_text())
+    assert (args["dataset_type"], args["img_channels"], args["reg_param"], args["au_lr"],
+            args["im_lr"], args["env_noise_mapping_lr"], args["compute_dtype"],
+            args["device_data"], args["seed"]) == (
+        "voxceleb2", 3, 10.0, 1e-4, 1e-4, 1e-6, "bfloat16", "on", 1)
+    record = json.loads((csvs / "port_hardvox_set.json").read_text())
+    assert (record["sha256_paths_and_pixels"], record["images"]) == h2h.set_digest(str(ds), "jpg")
+    assert record["images"] == 4 * 2 * 12
+    assert "model_00000003" in {p.name for p in (out / "seed_1" / "ckpts").iterdir()}
+    # the bar: the port's reading at step 2500 against the JAX run's six
+    rows = h2h.load_vox_aucs(str(csvs))
+    assert {k[1] for k in rows if k[0] == "jax"} == {2500, 5000, 7500, 10000, 12500, 14879}
+    assert h2h.vox_verdict(rows) == []  # no port reading at step 2500
+    write_port_csv(tmp_path / "port_hardvox_s1_eval_00002500.csv",
+                   {"gim": 0.99, "replay": 0.99, "rnd_src": 0.6})
+    checks = h2h.vox_verdict(h2h.load_vox_aucs(str(tmp_path)))
+    assert {c["attacker"]: c["ok"] for c in checks} == {
+        "gim": True, "replay": False, "rnd_src": True}  # replay under the JAX run's 0.9935
+    assert round(checks[1]["jax_min"], 4) == 0.9935
+    h2h.main(["--vox", "--report", "--csv_dir", str(tmp_path)])
