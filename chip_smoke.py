@@ -31,7 +31,7 @@ Phases (each prints its lines; the first failure exits non-zero):
               in f32 without cuDNN, and at each VoxCeleb authenticator site
               R1's double backward (the gradient of <grad_x conv, v> with
               respect to the weight and the cotangent) the same way; then
-              the bf16 rounding sites (port/bf16_sites.py) at the flagship
+              the bf16 rounding sites (tests/bf16_sites_support.py) at the flagship
               and VoxCeleb widths: each chain in bf16 on the card against
               the same chain in f32 on the CPU, mean error at most 1.5 x
               the CPU bf16 chain's (which tests/test_torch_bf16_sites.py
@@ -152,7 +152,7 @@ import torch
 # per-step launches at the flagship config, by site shape and input dtype.  An AdaIN
 # reads its conv in f32 (SNConv's f32_out) and the up blocks' sums and the attention's
 # output in f32, as XLA's compile of the JAX step does; only the first up block's first
-# AdaIN reads a bf16 value, the res stack's loop carry (port/bf16_sites.py)
+# AdaIN reads a bf16 value, the res stack's loop carry (tests/bf16_sites_support.py)
 ADAIN_SITES = {  # (B', C, H, W, dtype): launches per step (forward; backward the same)
     (640, 512, 4, 4, "f32"): 10,   # 5 res blocks x 2
     (640, 512, 4, 4, "bf16"): 1,   # up_0 first
@@ -852,7 +852,7 @@ def conv_error(names: list, got, want) -> float:
 
 
 def check_bf16_sites(seed: int) -> None:
-    """Each bf16 rounding site's chain (port/bf16_sites.py; random weights, norms and
+    """Each bf16 rounding site's chain (tests/bf16_sites_support.py; random weights, norms and
     gammas randomised, biases of scale SITES_BIAS_SCALE) in bf16 on the card against
     the chain in f32 on the CPU: the mean error at most SITES_RATIO x the CPU bf16
     chain's; where XLA's compile keeps the value in f32, under the card's error with
@@ -861,7 +861,8 @@ def check_bf16_sites(seed: int) -> None:
 
     from optimalstrategiesagainstgenerativeattacks_torch.nn import blocks as tblocks
     from optimalstrategiesagainstgenerativeattacks_torch.nn.init import init_module
-    from optimalstrategiesagainstgenerativeattacks_torch.port import bf16_sites as bs
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import bf16_sites_support as bs
 
     gen = torch.Generator().manual_seed(seed + 7)
     for cfg in (bs.FLAGSHIP, bs.VOX):

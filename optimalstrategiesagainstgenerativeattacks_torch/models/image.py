@@ -43,6 +43,12 @@ MIN_CHANNELS = 64  # narrowest conv stage of every encoder and decoder
 N_ADAIN_RES_BLOCKS = 5
 
 
+def round_to(x, dtype: Optional[torch.dtype]):
+    """``x`` in the compute dtype, where XLA's compile of the JAX step rounds a value
+    that a residual block returns in f32 (``nn/blocks.py``)."""
+    return x if dtype is None else x.to(dtype)
+
+
 def down_channel_schedule(img_size: int, img_channels: int, style_dim: int):
     """(n_down_blocks, channel_sizes, att_loc) of the encoders and the img2img down stage."""
     n_down = int(math.log2(img_size)) - 2
@@ -60,12 +66,11 @@ class Encoder(nn.Module):
         n_down, channels, att_loc = down_channel_schedule(img_size, img_channels, style_dim)
         self.att_loc = att_loc
         self.n_down = n_down
+        self.dtype = dtype
         for i in range(n_down):
             if i == att_loc:
                 self.att = SelfAttention(channels[i], dtype=dtype)
-            # the block before the attention in f32: the attention's residual add reads it
-            setattr(self, f"down_{i}", ResBlockDown(channels[i], channels[i + 1], dtype=dtype,
-                                                    f32_sum=i == att_loc - 1))
+            setattr(self, f"down_{i}", ResBlockDown(channels[i], channels[i + 1], dtype=dtype))
 
     def forward(self, x):
         """NCHW images -> [B', style]."""
@@ -73,6 +78,10 @@ class Encoder(nn.Module):
             if i == self.att_loc:
                 x = self.att(x)
             x = getattr(self, f"down_{i}")(x)
+            # the attention's residual add reads the sum in f32; the next block's lrelu
+            # and the max pool read it rounded
+            if i + 1 != self.att_loc:
+                x = round_to(x, self.dtype)
         return leaky_relu(adaptive_max_pool(x))
 
 
@@ -125,21 +134,21 @@ class Img2ImgDownModule(nn.Module):
         n_down, channels, att_loc = down_channel_schedule(img_size, img_channels, style_dim)
         self.n_down = n_down
         self.att_loc = att_loc
+        self.dtype = dtype
         for i in range(n_down):
             if i == att_loc:
                 self.att = SelfAttention(channels[i], dtype=dtype)
             conv = dict(conv_size=9, padding=4) if i == 0 else {}
-            # each norm reads its block's sum in f32 and gives the compute dtype
             setattr(self, f"down_{i}",
-                    ResBlockDown(channels[i], channels[i + 1], dtype=dtype, f32_sum=True,
-                                 **conv))
-            setattr(self, f"in_{i}", InstanceNorm(channels[i + 1], dtype=dtype))
+                    ResBlockDown(channels[i], channels[i + 1], dtype=dtype, **conv))
+            setattr(self, f"in_{i}", InstanceNorm(channels[i + 1]))
 
     def forward(self, x):
         for i in range(self.n_down):
             if i == self.att_loc:
                 x = self.att(x)
-            x = getattr(self, f"in_{i}")(getattr(self, f"down_{i}")(x))
+            # each norm reads its block's sum in f32; its output is rounded
+            x = round_to(getattr(self, f"in_{i}")(getattr(self, f"down_{i}")(x)), self.dtype)
         return x
 
 
@@ -148,12 +157,14 @@ class Img2ImgAdaInResModule(nn.Module):
 
     def __init__(self, style_dim: int = 512, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         for i in range(N_ADAIN_RES_BLOCKS):
             setattr(self, f"res_{i}", AdaResBlock2(style_dim, style_dim, dtype=dtype))
 
     def forward(self, x, style):
         for i in range(N_ADAIN_RES_BLOCKS):
-            x = getattr(self, f"res_{i}")(x, style)
+            # rounded, as the JAX res stack's loop carry is
+            x = round_to(getattr(self, f"res_{i}")(x, style), self.dtype)
         return x
 
 
@@ -170,21 +181,21 @@ class Img2ImgAdaInUpModule(nn.Module):
         ) + [img_channels]
         self.n_up = n_up
         self.att_loc = int(math.ceil(n_up / 2))
+        self.dtype = dtype
         for i in range(n_up):
             if i == self.att_loc:
                 self.att = SelfAttention(channels[i], dtype=dtype)
-            last = i == n_up - 1
-            conv = dict(conv_size=9, padding=4) if last else {}
-            # the next AdaIN (or the attention) reads the sum in f32; tanh reads it rounded
+            conv = dict(conv_size=9, padding=4) if i == n_up - 1 else {}
             setattr(self, f"up_{i}", AdaResBlockUp2(channels[i], channels[i + 1], style_dim,
-                                                    dtype=dtype, f32_sum=not last, **conv))
+                                                    dtype=dtype, **conv))
 
     def forward(self, x, style):
+        # the next AdaIN (or the attention) reads each sum in f32; tanh reads it rounded
         for i in range(self.n_up):
             if i == self.att_loc:
                 x = self.att(x)
             x = getattr(self, f"up_{i}")(x, style)
-        return torch.tanh(x)
+        return torch.tanh(round_to(x, self.dtype))
 
 
 class AdaInImage2Image(nn.Module):

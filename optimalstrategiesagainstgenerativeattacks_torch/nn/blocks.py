@@ -13,11 +13,13 @@ f32 normalisation statistics.  No ``torch.autocast``.
 
 Where XLA's default compile of the JAX step keeps a bf16 value in f32 for
 the op that reads it (``xla_allow_excess_precision``), the port keeps it in
-f32 too: a residual sum read by a norm or by the attention's residual add
-(``f32_sum``), and a conv's bias added in f32 when a norm reads the conv
-(``SNConv(f32_out=True)``: the conv rounds, its sum with the bias does not).
-Where XLA rounds (a sum read by a global max pool, tanh or the AdaIN res
-stack's loop carry; a norm's output read by the attention), the port rounds.
+f32 too: the residual blocks return their sums in f32, and a conv's bias is
+added in f32 when a norm reads the conv (``SNConv(f32_out=True)``: the conv
+rounds, its sum with the bias does not).  A conv that reads an f32 sum
+rounds it to its compute dtype itself; where XLA rounds the sum for another
+consumer (a global max pool, tanh, the AdaIN res stack's loop carry, the
+next down block; a norm's output read by the attention), the model that
+knows the consumer rounds it (``models/image.py``).
 ``tests/test_torch_bf16_sites.py`` holds each site to XLA's compile;
 ``scripts/torch_bf16_sites.py`` prints the readings.
 
@@ -183,18 +185,13 @@ def conv_one_channel(x, w, b, padding: int):
 
 
 class InstanceNorm(nn.Module):
-    """InstanceNorm2d with affine ``weight``/``bias`` (Flax ``scale``/``bias``).
+    """InstanceNorm2d with affine ``weight``/``bias`` (Flax ``scale``/``bias``)."""
 
-    The output is in the input's dtype, or in ``dtype`` when one is given: the
-    norm's output rounded to the compute dtype where XLA rounds it (the img2img
-    down stage's norms, which read an f32 sum)."""
-
-    def __init__(self, channels: int, eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
+    def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.eps = eps
-        self.dtype = dtype
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -202,8 +199,7 @@ class InstanceNorm(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
-        out = instance_norm(x, self.weight, self.bias, self.eps)
-        return out if self.dtype is None else out.to(self.dtype)
+        return instance_norm(x, self.weight, self.bias, self.eps)
 
 
 class Flatten(nn.Module):
@@ -481,23 +477,22 @@ class SGDisBlock(nn.Module):
 class ResBlockDown(nn.Module):
     """SN residual down block: left 1x1 conv -> pool; right lrelu, conv, lrelu, conv, pool.
 
-    ``f32_sum``: the sum in f32, for a block read by a norm or the attention."""
+    The sum in f32: a norm or the attention reads it so (``models/image.py``)."""
 
     def __init__(self, in_channels: int, out_channels: int, conv_size: int = 3,
-                 padding: int = 1, dtype: Optional[torch.dtype] = None, f32_sum: bool = False):
+                 padding: int = 1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv_l1 = SNConv(in_channels, out_channels, 1, padding=0, dtype=dtype)
         self.conv_r1 = SNConv(in_channels, out_channels, conv_size, padding=padding,
                               dtype=dtype)
         self.conv_r2 = SNConv(out_channels, out_channels, conv_size, padding=padding,
                               dtype=dtype)
-        self.f32_sum = f32_sum
 
     def forward(self, x):
         res = avg_pool2d(self.conv_l1(x))
         out = self.conv_r1(leaky_relu(x))
         out = avg_pool2d(self.conv_r2(leaky_relu(out)))
-        return res.float() + out.float() if self.f32_sum else res + out
+        return res.float() + out.float()
 
 
 class SelfAttention(nn.Module):
@@ -569,7 +564,7 @@ class AdaResBlock2(nn.Module):
     """AdaIN residual block; style mapped by four linears to two (mean, std) pairs.
 
     The AdaINs read their convs' outputs in f32 (``SNConv(f32_out=True)``); the sum
-    is rounded to ``dtype``, as the JAX res stack's loop carry is."""
+    in f32 (the res stack rounds its loop carry)."""
 
     def __init__(self, channels: int, style_dim: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -579,27 +574,24 @@ class AdaResBlock2(nn.Module):
         self.lin2_std = Dense(style_dim, channels, dtype=dtype)
         self.conv1 = SNConv(channels, channels, 3, padding=1, dtype=dtype, f32_out=True)
         self.conv2 = SNConv(channels, channels, 3, padding=1, dtype=dtype, f32_out=True)
-        self.dtype = dtype
 
     def forward(self, x, style):
         res = x
         x = ada_in(self.conv1(x), self.lin1_mean(style), self.lin1_std(style))
         x = self.conv2(leaky_relu(x))
-        x = ada_in(x, self.lin2_mean(style), self.lin2_std(style)) + res
-        return x if self.dtype is None else x.to(self.dtype)
+        x = ada_in(x, self.lin2_mean(style), self.lin2_std(style))
+        return x.float() + res.float()
 
 
 class AdaResBlockUp2(nn.Module):
     """AdaIN residual 2x up block.
 
     left: upsample -> 1x1 conv; right: AdaIN, lrelu, upsample, conv, AdaIN, lrelu, conv.
-    The second AdaIN reads its conv in f32; ``f32_sum``: the sum in f32, for a
-    block read by the next block's AdaIN or the attention.
+    The second AdaIN reads its conv in f32; the sum in f32 (tanh reads it rounded).
     """
 
     def __init__(self, in_channels: int, out_channels: int, style_dim: int,
-                 conv_size: int = 3, padding: int = 1, dtype: Optional[torch.dtype] = None,
-                 f32_sum: bool = False):
+                 conv_size: int = 3, padding: int = 1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.lin1_mean = Dense(style_dim, in_channels, dtype=dtype)
         self.lin1_std = Dense(style_dim, in_channels, dtype=dtype)
@@ -610,14 +602,13 @@ class AdaResBlockUp2(nn.Module):
                               dtype=dtype, f32_out=True)
         self.conv_r2 = SNConv(out_channels, out_channels, conv_size, padding=padding,
                               dtype=dtype)
-        self.f32_sum = f32_sum
 
     def forward(self, x, style):
         res = self.conv_l1(upscale2d(x))
         out = leaky_relu(ada_in(x, self.lin1_mean(style), self.lin1_std(style)))
         out = self.conv_r1(upscale2d(out))
         out = self.conv_r2(leaky_relu(ada_in(out, self.lin2_mean(style), self.lin2_std(style))))
-        return out.float() + res.float() if self.f32_sum else out + res
+        return out.float() + res.float()
 
 
 class AdaResBlock(nn.Module):

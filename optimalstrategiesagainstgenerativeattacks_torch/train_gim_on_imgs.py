@@ -6,7 +6,8 @@
 The arguments and defaults of the reference's ``train_gim_on_imgs.py``
 (the JAX package's CLI without its TPU-only flags), plus ``--device``:
 ``cuda`` (the default) needs a GPU, ``cpu`` runs the kernels' plain
-versions.  Omniglot paper hparams are the defaults; for VoxCeleb2 use
+versions; and ``--cudnn_benchmark 1``: cuDNN times its conv algorithms
+(faster, not bit-reproducible).  Omniglot paper hparams are the defaults; for VoxCeleb2 use
 ``--dataset_type voxceleb2 --img_size 64 --img_channels 3 --au_lr 1e-4
 --im_lr 1e-4 --env_noise_mapping_lr 1e-6 --reg_param 10``.  The arguments
 are written to ``<outdir>/args.json``; checkpoints go to
@@ -81,6 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cuda runs the hand-written kernels on the GPU; cpu runs "
                              "their plain versions")
+    parser.add_argument("--cudnn_benchmark", type=lambda x: bool(int(x)), default=False,
+                        help="1: cuDNN picks each conv's algorithm by timing it (faster; "
+                             "the run is then not bit-reproducible)")
     return parser
 
 
@@ -123,7 +127,8 @@ def main(argv: Optional[Sequence[str]] = None):
     save_args(args, args.outdir)
     cfg = ImageGameConfig.from_dict(vars(args))
     train_ds, val_ds = make_datasets(cfg)
-    return train_gim_imgs(cfg, train_ds, val_ds, device=args.device)
+    return train_gim_imgs(cfg, train_ds, val_ds, device=args.device,
+                          cudnn_benchmark=args.cudnn_benchmark)
 
 
 if __name__ == "__main__":

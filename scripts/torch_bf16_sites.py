@@ -1,12 +1,13 @@
 #!/usr/bin/env python
 """Where the port's bf16 roundings meet XLA's: the readings of every candidate site.
 
-For each site of the image game's main path (``port/bf16_sites.py``: the block
-that makes a bf16 value and the consumer that reads it, built from the JAX
-package's modules and from the submodules of the port's players, with the
-same weights; ``tests/test_torch_bf16_sites.py`` compiles and compares them) at the flagship (32x32x1, style 512) and VoxCeleb (64x64x3,
-style 512) widths, a batch of 2, prints the mean absolute error at the
-consumer's output against the JAX chain in f32 of:
+For each site of the image game's main path (``tests/bf16_sites_support.py``:
+the block that makes a bf16 value and the consumer that reads it, built from
+the JAX package's modules and from the submodules of the port's players, with
+the same weights; ``tests/bf16_sites_jax.py`` compiles and compares them) at
+the flagship (32x32x1, style 512) and VoxCeleb (64x64x3, style 512) widths, a
+batch of 2, prints the mean absolute error at the consumer's output against
+the JAX chain in f32 of:
 
   jax_default     the JAX chain in bf16 as XLA compiles it by default
   jax_as_written  the same with ``xla_allow_excess_precision`` off
@@ -33,16 +34,16 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+os.environ["JAX_PLATFORMS"] = "cpu"  # before jax is imported
 
-import conftest  # noqa: E402  (sets the JAX platform before jax is used)
+import jax  # noqa: E402
 
-conftest.pytest_configure(None)
+jax.config.update("jax_platforms", "cpu")  # wins over a platform plugin's own choice
 
-import test_torch_bf16_sites as sites  # noqa: E402
+import bf16_sites_jax as sites  # noqa: E402
+import bf16_sites_support as support  # noqa: E402
 
-from optimalstrategiesagainstgenerativeattacks_torch.port import bf16_sites  # noqa: E402
-
-CONFIGS = {"flagship": bf16_sites.FLAGSHIP, "vox": bf16_sites.VOX, "small": bf16_sites.SMALL}
+CONFIGS = {"flagship": support.FLAGSHIP, "vox": support.VOX, "small": support.SMALL}
 KEYS = ("jax_default", "jax_as_written", "port_rounded", "port_f32", "port")
 TRACK = ("port_rounded", "port_f32", "port")
 
@@ -60,7 +61,7 @@ def main(argv=None):
         cfg = CONFIGS[name]
         players = cfg.players()
         for scale in args.bias_scales:
-            for case in bf16_sites.cases(cfg):
+            for case in support.cases(cfg):
                 if case.site not in args.sites:
                     continue
                 t0 = time.perf_counter()

@@ -48,10 +48,11 @@ steps with ``scripts/eval_hardvox_grid.sh``).
    an epoch (the JAX run's 14879 steps in 160 epochs are 93 steps an epoch:
    600 train videos x 20 / 128), as many epochs as reach ``--n_steps``, a
    checkpoint at ``--n_steps``; the JAX CLI's defaults otherwise, one process
-   a seed, one after another.  ``--cudnn_benchmark`` runs the CLI with cuDNN
-   picking each conv's algorithm by timing it (as XLA autotunes the JAX
-   package's convs; runs are then not bit-reproducible): on the H100 the
-   VoxCeleb step takes ~1.26 s instead of ~1.52, and 2500 steps fit one hour.
+   a seed, one after another.  ``--cudnn_benchmark`` passes the CLI's
+   ``--cudnn_benchmark 1``: cuDNN picks each conv's algorithm by timing it (as
+   XLA autotunes the JAX package's convs; runs are then not bit-reproducible):
+   on the H100 the VoxCeleb step takes ~1.26 s instead of ~1.52, and 2500
+   steps fit one hour.
 3. Eval: the port's eval CLI with the flags of ``scripts/eval_hardvox_grid.sh``
    (voxceleb2, 64 px, 3 channels, m1 n5 k5) on the checkpoint at ``--n_steps``,
    into ``<csv_dir>/port_hardvox_s<seed>_eval_<step:08d>.csv``.
@@ -309,15 +310,12 @@ def train_vox(seed: int, ds_root: str, outdir: str, n_steps: int, device: str,
     batch = int(sizes[sizes.index("--batch_size") + 1])
     per_epoch = n_train * VOX_EXAMPLES_PER_CLASS // batch
     exp = os.path.join(outdir, f"seed_{seed}")
-    run = (["-c", "import runpy, sys, torch; torch.backends.cudnn.benchmark = True; "
-                  f"runpy.run_module('{VOX_TRAIN_MODULE}', run_name='__main__')"]
-           if cudnn_benchmark else ["-m", VOX_TRAIN_MODULE])
-    cmd = [sys.executable, *run, "--dataset_root", ds_root, "-o", exp,
+    cmd = [sys.executable, "-m", VOX_TRAIN_MODULE, "--dataset_root", ds_root, "-o", exp,
            *VOX_CONFIG, *sizes, "--compute_dtype", "bfloat16", "--device_data", "on",
            "--ds_n_examples_per_cls", str(VOX_EXAMPLES_PER_CLASS), "--seed", str(seed),
            # the loop numbers its steps from 0: the epochs run past step n_steps
            "--n_epochs", str(n_steps // per_epoch + 1), "--save_every", str(n_steps),
-           "--device", device]
+           "--cudnn_benchmark", str(int(cudnn_benchmark)), "--device", device]
     os.makedirs(outdir, exist_ok=True)
     print(" ".join(cmd[1:]), flush=True)
     t0 = time.perf_counter()
@@ -439,7 +437,8 @@ def main(argv=None) -> None:
     ap.add_argument("--style_dim", type=int, default=512, help="--vox")
     ap.add_argument("--batch_size", type=int, default=128, help="--vox")
     ap.add_argument("--cudnn_benchmark", action="store_true",
-                    help="--vox: cuDNN times its conv algorithms in the training process")
+                    help="--vox: the CLI's --cudnn_benchmark 1 (cuDNN times its conv "
+                         "algorithms)")
     ap.add_argument("--report", action="store_true",
                     help="print the table and the bar of the CSVs present, and stop")
     args = ap.parse_args(argv)

@@ -7,10 +7,13 @@ compile of the JAX step keeps some such values in f32 (``nn/blocks.py``); each
 consumer that reads it: the stages of the JAX package's modules (``stages``,
 plain data) and a function that takes the same stages from the port's players
 (``port``), with the same parameter names, so that the transplant maps one
-onto the other.  ``tests/test_torch_bf16_sites.py`` holds each chain to XLA's
-compile on the CPU; ``chip_smoke.py`` holds the port's chains on the card to the
-CPU.  ``variants`` gives the forward hooks that round a site's value to bf16
-or keep it in f32.  Imports no JAX.
+onto the other.  Where the port's model rounds a block's f32 sum for its
+consumer (``models/image.py:round_to``), the chain has a ``TRound`` stage
+there.  ``bf16_sites_jax.py`` builds the JAX chains and reads both on the
+CPU (``test_torch_bf16_sites.py``, ``scripts/torch_bf16_sites.py``);
+``chip_smoke.py`` holds the port's chains on the card to the CPU.
+``variants`` gives the forward hooks that round a site's value to bf16 or keep
+it in f32.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from torch import nn
 
 from optimalstrategiesagainstgenerativeattacks_torch.models import image as tmodels
 from optimalstrategiesagainstgenerativeattacks_torch.nn import blocks as tblocks
-from optimalstrategiesagainstgenerativeattacks_torch.ops.adain import ada_in, instance_norm
+from optimalstrategiesagainstgenerativeattacks_torch.ops.adain import ada_in
 from optimalstrategiesagainstgenerativeattacks_torch.ops.image_ops import (
     adaptive_max_pool,
     leaky_relu,
@@ -84,6 +87,18 @@ class THead(nn.Module):
         return leaky_relu(adaptive_max_pool(x))
 
 
+class TRound(nn.Module):
+    """``round_to``: a residual block's f32 sum in the compute dtype, where the
+    port's model rounds it for its consumer."""
+
+    def __init__(self, dtype):
+        super().__init__()
+        self.dtype = dtype
+
+    def forward(self, x):
+        return tmodels.round_to(x, self.dtype)
+
+
 class TTanh(nn.Module):
     """``torch.tanh``, as ``Img2ImgAdaInUpModule`` ends."""
 
@@ -92,21 +107,25 @@ class TTanh(nn.Module):
 
 
 class TChain(nn.Module):
-    """Stages ``s0``, ``s1``, ... applied in turn; with ``upsample``, the first reads
+    """Stages ``s0``, ``s1``, ... applied in turn, as the JAX chain names them; a
+    ``TRound`` after ``s<i>`` is ``s<i>_round``.  With ``upsample``, the first reads
     the 2x upsampled input (a block's conv_r1, as the block calls it)."""
 
     def __init__(self, stages: Sequence[nn.Module], upsample: bool = False):
         super().__init__()
-        for i, m in enumerate(stages):
-            self.add_module(f"s{i}", m)
-        self.n = len(stages)
+        self.order, i = [], 0
+        for m in stages:
+            name = f"s{i - 1}_round" if isinstance(m, TRound) else f"s{i}"
+            i += not isinstance(m, TRound)
+            self.add_module(name, m)
+            self.order.append(name)
         self.upsample = upsample
 
     def forward(self, x, style=None):
         if self.upsample:
             x = upscale2d(x)
-        for i in range(self.n):
-            m = getattr(self, f"s{i}")
+        for name in self.order:
+            m = getattr(self, name)
             styled = isinstance(m, (tblocks.AdaResBlockUp2, tmodels.Img2ImgAdaInResModule, TAdaIn))
             x = m(x, style) if styled else m(x)
         return x
@@ -143,8 +162,8 @@ class Case:
     ``producer`` is the port chain's stage whose output is the value.  How the
     value is kept in f32: ``f32_parts``, the submodules whose outputs, kept in
     f32, make it (the SN convs of a residual sum); ``value="conv"``, a conv's
-    own output, run in f32 on its bf16-rounded operands; ``value="norm"``, an
-    instance norm's output, computed and left in f32."""
+    own output, run in f32 on its bf16-rounded operands; ``value="round"``,
+    the producer is a ``TRound`` stage, which then passes its input on."""
     site: str
     name: str
     stages: tuple                     # JChain's stages
@@ -189,7 +208,8 @@ def cases(cfg: Config) -> list:
             "1", f"img2img down_{i} -> in_{i} [{b},{hw},{hw},{ch[i]}->{ch[i + 1]}]",
             (("down", tuple(dict(out_channels=ch[i + 1], **conv).items())), ("in", ())),
             lambda im, au, i=i: [getattr(im.img2img.down_block, f"down_{i}"),
-                                 getattr(im.img2img.down_block, f"in_{i}")],
+                                 getattr(im.img2img.down_block, f"in_{i}"),
+                                 TRound(im.img2img.down_block.dtype)],
             (b, hw, hw, ch[i]), f32_parts=("s0.conv_l1", "s0.conv_r2"), split=i == 0))
     i = att - 1
     hw = s >> i
@@ -198,8 +218,10 @@ def cases(cfg: Config) -> list:
         "1", f"img2img in_{i} -> att [{b},{hw // 2},{hw // 2},{ch[att]}]",
         (("down", tuple(dict(out_channels=ch[att], **conv).items())), ("in", ()), ("att", ())),
         lambda im, au, i=i: [getattr(im.img2img.down_block, f"down_{i}"),
-                             getattr(im.img2img.down_block, f"in_{i}"), im.img2img.down_block.att],
-        (b, hw, hw, ch[i]), producer="s1", value="norm", split=i == 0))
+                             getattr(im.img2img.down_block, f"in_{i}"),
+                             TRound(im.img2img.down_block.dtype), im.img2img.down_block.att],
+        (b, hw, hw, ch[i]), producer="s1_round", value="round",
+        split=i == 0))
     # 2. the img2img up stage: AdaResBlockUp2 -> (attention ->) the next AdaIN, or tanh
     n_up, uch, uatt = up_schedule(cfg)
     hw = s >> n_up
@@ -217,14 +239,15 @@ def cases(cfg: Config) -> list:
             up = im.img2img.adain_up_block
             st = [getattr(up, f"up_{i}")] + ([up.att] if i + 1 == uatt else [])
             if last:
-                return st + [TTanh()]
+                return st + [TRound(up.dtype), TTanh()]
             nb = getattr(up, f"up_{i + 1}")
             return st + [TAdaIn(nb.lin1_mean, nb.lin1_std)]
         label = "up_last" if last else f"up_{i}"  # the last block: at every config
+        rounds = (dict(producer="s0_round", value="round") if last
+                  else dict(f32_parts=("s0.conv_r2",)))
         out.append(Case("2", f"img2img {label} -> {nxt} [up_{i}: {b},{hw},{hw},"
                         f"{uch[i]}->{uch[i + 1]}]",
-                        tuple(stages), port, (b, hw, hw, uch[i]), f32_parts=("s0.conv_r2",),
-                        styled=True))
+                        tuple(stages), port, (b, hw, hw, uch[i]), styled=True, **rounds))
         hw *= 2
     # 3. the AdaIN res stack -> the first up block's first AdaIN
     c, hw = cfg.style_dim, s >> n_up
@@ -251,10 +274,10 @@ def cases(cfg: Config) -> list:
         f"{hw},{ch[i]}->{ch[i + 1]}]",
         (("down", (("out_channels", ch[i + 1]),)), ("head", ()),
          ("stat", (("set_size", cfg.set_size),))),
-        lambda im, au, i=i: [getattr(au.encoders.env, f"down_{i}"), THead(),
-                             TStatStage(au.dis.stat, cfg.set_size)],
-        (b * cfg.set_size, hw, hw, ch[i]), f32_parts=("s0.conv_l1", "s0.conv_r2"),
-        episodes=True))
+        lambda im, au, i=i: [getattr(au.encoders.env, f"down_{i}"), TRound(au.encoders.env.dtype),
+                             THead(), TStatStage(au.dis.stat, cfg.set_size)],
+        (b * cfg.set_size, hw, hw, ch[i]), producer="s0_round", value="round",
+        f32_parts=("s0.conv_l1", "s0.conv_r2"), episodes=True))
     # 5. SN convs whose output a norm reads: the env decoder's conv_r1 -> in2, the res
     #    blocks' conv1 -> AdaIN, the up blocks' conv_r1 -> AdaIN
     n_dec, dch, datt = decoder_schedule(cfg)
@@ -333,22 +356,16 @@ def hooks(module: nn.Module, pairs):
             h.remove()
 
 
-def _f32_norm(module, args, out):
-    """The instance norm's output left in f32."""
-    return instance_norm(args[0].float(), module.weight, module.bias, module.eps)
-
-
 def variants(case: Case) -> dict:
     """{reading: forward hooks on the port chain}."""
     if case.value == "conv":
         keep = [(case.producer, _f32_conv)]
-    elif case.value == "norm":
-        keep = [(case.producer, _f32_norm)]
     else:
         keep = [(name, lambda m, a, o: o.float()) for name in case.f32_parts]
+        if case.value == "round":
+            keep.append((case.producer, lambda m, a, o: a[0]))
     return {"port_rounded": [(case.producer, lambda m, a, o: o.to(BF16))], "port_f32": keep,
             "port": []}
-
 
 
 def by_name(cfg: Config) -> dict:

@@ -8,206 +8,26 @@ Where it does, the consumer reads the unrounded value, and a port that
 rounds first feeds it a different input (the env decoder's first block, the
 hard-glyph head-to-head).
 
-Each case (``port/bf16_sites.py``) is a chain: the block that makes the value
-and the consumer that reads it.  The JAX chain is built here from the JAX
-package's modules; the port's from the submodules of the port's own players,
-as ``get_im`` / ``get_au`` build them, so the roundings they choose are the
-ones tested.  Both get the
-same weights (instance norms and attention gammas randomised as in
-``test_torch_support``; with ``bias_scale``, every conv and linear bias drawn
-at that scale, which makes the rounding of a value that carries a large
-per-channel offset stand out after a norm).  Intermediates are not read out:
-a value that becomes an output is materialised in bf16, which can change the
-fusion being measured; each chain is compared at its consumer's output,
-against the JAX chain in f32.  The readings (mean absolute error):
-
-  * ``jax_default``: the JAX chain in bf16 as XLA compiles it by default;
-  * ``jax_as_written``: compiled with excess precision off, every rounding
-    the JAX code writes kept;
-  * ``port_rounded`` / ``port_f32``: the port with the site's value rounded
-    to bf16 / kept in f32;
-  * ``port``: the port as it runs.
-
-``scripts/torch_bf16_sites.py`` prints them at the flagship and VoxCeleb
-widths.  The tests take small widths (img 32, style 32) and ``bias_scale``
-30, and hold the port's mean error at the consumer's output to at most
-``RATIO`` = 1.5 times the default compile's.  Where XLA keeps the value in
-f32 (``xla_keeps_f32``: the default compile tracks the port with the value in
-f32, the as-written compile the port with it rounded), the port must track
+Each case (``bf16_sites_support.py``) is a chain: the block that makes the
+value and the consumer that reads it; ``bf16_sites_jax.py`` builds the JAX
+chain and reads both (``scripts/torch_bf16_sites.py`` prints the readings at
+the flagship and VoxCeleb widths).  The tests take small widths (img 32,
+style 32) and ``bias_scale`` 30, and hold the port's mean error at the
+consumer's output to at most ``RATIO`` = 1.5 times the default compile's.
+Where XLA keeps the value in f32 (``xla_keeps_f32``), the port must track
 the default compile more closely than with the value rounded; where XLA
 rounds, the port's output must equal the rounded chain's, so that a later
 change that keeps such a value in f32 fails.
 """
 
-from __future__ import annotations
-
-from typing import Any
-
-import jax
-import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
-from flax import linen as fnn
-
-from optimalstrategiesagainstgenerativeattacks_torch.port.bf16_sites import (
-    KEEPS_F32,
-    ROUNDS,
-    SMALL,
-    Case,
-    Config,
-    TChain,
-    by_name,
-    from_port,
-    hooks,
-    inputs,
-    to_port,
-    variants,
-)
-from optimalstrategiesagainstgenerativeattacks_torch.port.transplant import load_flax
-from optimalstrategiesagainstgenerativeattacks_tpu.models import image as jmodels
-from optimalstrategiesagainstgenerativeattacks_tpu.nn import blocks as jblocks
-from optimalstrategiesagainstgenerativeattacks_tpu.nn.stats import MeanStdFcStat as JStat
-from optimalstrategiesagainstgenerativeattacks_tpu.ops.adain import ada_in as j_ada_in
-from optimalstrategiesagainstgenerativeattacks_tpu.ops.image_ops import (
-    adaptive_max_pool as j_max_pool,
-    leaky_relu as j_lrelu,
-)
-from test_torch_support import randomise_norms_and_gammas
+from bf16_sites_jax import readings, xla_keeps_f32
+from bf16_sites_support import KEEPS_F32, ROUNDS, SMALL, by_name
 
 torch.set_num_threads(1)
 
 RATIO = 1.5
-BIAS_SCALE = 30.0  # the tests' biases: the rounding of an offset value dominates
-
-
-# --- the JAX chains (NHWC) ----------------------------------------------------------------
-
-class JAdaIn(fnn.Module):
-    """A block's AdaIN of its input: the style mapped by two linears."""
-    channels: int
-    dtype: Any = None
-
-    @fnn.compact
-    def __call__(self, x, style):
-        mean = jblocks.Dense(self.channels, dtype=self.dtype, name="lin_mean")(style)
-        std = jblocks.Dense(self.channels, dtype=self.dtype, name="lin_std")(style)
-        return j_ada_in(x, mean, std)
-
-
-class JStatStage(fnn.Module):
-    """The authenticator's set statistic over sets of ``set_size`` encodings."""
-    set_size: int
-    dtype: Any = None
-
-    @fnn.compact
-    def __call__(self, x):
-        c = x.shape[-1]
-        return JStat(style_dim=c, fc_n_stats=2, fc_hidden_layers=(2 * c, 3 * c, 2 * c),
-                     dtype=self.dtype, name="stat")(x.reshape(-1, self.set_size, c))
-
-
-def _jax_stage(kind: str, kw: dict, dtype, name: str):
-    if kind == "down":
-        return jblocks.ResBlockDown(dtype=dtype, name=name, **kw)
-    if kind == "in":
-        return jblocks.InstanceNorm(name=name)
-    if kind == "att":
-        return jblocks.SelfAttention(dtype=dtype, name=name)
-    if kind == "adaup":
-        return jblocks.AdaResBlockUp2(dtype=dtype, name=name, **kw)
-    if kind == "res":
-        return jmodels.Img2ImgAdaInResModule(dtype=dtype, name=name, **kw)
-    if kind == "ada":
-        return JAdaIn(dtype=dtype, name=name, **kw)
-    if kind == "conv":
-        return jblocks.SNConv(dtype=dtype, name=name, **kw)
-    if kind == "stat":
-        return JStatStage(dtype=dtype, name=name, **kw)
-    if kind == "tanh":
-        return jnp.tanh
-    if kind == "head":  # the encoders' end: global max pool, lrelu
-        return lambda x: j_lrelu(j_max_pool(x))
-    raise KeyError(kind)
-
-
-STYLED = ("adaup", "res", "ada")
-
-
-class JChain(fnn.Module):
-    """Stages ``s0``, ``s1``, ... applied in turn; ``(kind, kwargs)`` each."""
-    stages: tuple
-    dtype: Any = None
-
-    @fnn.compact
-    def __call__(self, x, style=None):
-        for i, (kind, kw) in enumerate(self.stages):
-            stage = _jax_stage(kind, dict(kw), self.dtype, f"s{i}")
-            x = stage(x, style) if kind in STYLED else stage(x)
-        return x
-
-
-# --- readings -----------------------------------------------------------------------------
-
-def _scaled_biases(params, rng, scale: float):
-    """Every conv and linear bias drawn from N(0, scale^2)."""
-    out = {}
-    for k, v in params.items():
-        if isinstance(v, dict):
-            out[k] = _scaled_biases(v, rng, scale)
-        elif k == "bias" and "kernel" in params:
-            out[k] = (scale * rng.standard_normal(np.shape(v))).astype(np.float32)
-        else:
-            out[k] = v
-    return out
-
-
-def readings(case: Case, cfg: Config, players=None, seed: int = 0,
-             bias_scale: float = BIAS_SCALE) -> dict:
-    """{reading: mean absolute error at the consumer's output against the JAX chain in
-    f32}, with ``"ref"``: the mean absolute value of that output."""
-    rng = np.random.default_rng(seed)
-    xs = inputs(case, cfg, rng)
-    jargs = list(xs)
-    if case.split:
-        c = xs[0].shape[-1] // 2
-        jargs[0] = (xs[0][..., :c], xs[0][..., c:])
-    j32, j16 = JChain(case.stages), JChain(case.stages, jnp.bfloat16)
-    v = j32.init(jax.random.PRNGKey(seed), *jargs)
-    params = randomise_norms_and_gammas(jax.tree.map(np.asarray, v["params"]), rng)
-    v = {"params": _scaled_biases(params, rng, bias_scale),
-         "spectral": jax.tree.map(np.asarray, v["spectral"])}
-
-    def compiled(module, **options):
-        fn = jax.jit(lambda variables, *a: module.apply(variables, *a))
-        return fn.lower(v, *jargs).compile(compiler_options=options or None)
-
-    outs = {"ref": compiled(j32)(v, *jargs),
-            "jax_default": compiled(j16)(v, *jargs),
-            "jax_as_written": compiled(j16, xla_allow_excess_precision=False)(v, *jargs)}
-    outs = {k: np.asarray(o).astype(np.float32) for k, o in outs.items()}
-    im, au = players if players is not None else cfg.players()
-    port = TChain(case.port(im, au), case.upsample)
-    load_flax(port, v["params"], v["spectral"])
-    targs = [to_port(x) for x in xs]
-    for name, pairs in variants(case).items():
-        with torch.no_grad(), hooks(port, pairs):
-            outs[name] = from_port(port(*targs))
-    ref = outs.pop("ref")
-    res = {k: float(np.abs(o - ref).mean()) for k, o in outs.items()}
-    res["ref"] = float(np.abs(ref).mean())
-    for jk in ("jax_default", "jax_as_written"):  # which port variant each compile tracks
-        for pk in ("port_rounded", "port_f32", "port"):
-            res[f"{pk} ~ {jk}"] = float(np.abs(outs[pk] - outs[jk]).mean())
-    res["port rounds"] = bool(np.array_equal(outs["port"], outs["port_rounded"]))
-    return res
-
-
-def xla_keeps_f32(r: dict) -> bool:
-    """The default compile tracks the port with the value in f32, and the as-written
-    compile the port with it rounded: XLA skips the rounding the JAX code writes."""
-    return (r["port_f32 ~ jax_default"] < r["port_rounded ~ jax_default"]
-            and r["port_rounded ~ jax_as_written"] < r["port_f32 ~ jax_as_written"])
 
 
 # --- the tests ----------------------------------------------------------------------------

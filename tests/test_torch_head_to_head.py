@@ -196,11 +196,39 @@ def test_bf16_parts_runs_the_named_submodules_in_f32():
         parts.with_f32_parts(timg.build_models, ["env_decoder"])(cfg)
 
 
-def test_vox_rehearsal_on_the_cpu(tmp_path, monkeypatch):
+def test_bf16_parts_rounds_the_named_sites_and_restores_the_blocks():
+    import torch
+
+    from optimalstrategiesagainstgenerativeattacks_torch.nn import blocks
+
+    spec = importlib.util.spec_from_file_location("torch_bf16_parts",
+                                                  REPO / "scripts" / "torch_bf16_parts.py")
+    parts = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parts)
+    x, style = torch.randn(2, 4, 8, 8), torch.randn(2, 6)
+
+    def dtypes():
+        down = blocks.ResBlockDown(4, 8, dtype=torch.bfloat16)
+        up = blocks.AdaResBlockUp2(4, 8, 6, dtype=torch.bfloat16)
+        conv = blocks.SNConv(4, 8, 3, padding=1, dtype=torch.bfloat16, f32_out=True)
+        return down(x).dtype, up(x, style).dtype, conv.f32_out
+
+    assert dtypes() == (torch.float32, torch.float32, True)
+    with parts.rounded_sites(list(parts.ROUND_GROUPS)):
+        assert dtypes() == (torch.bfloat16, torch.bfloat16, False)
+    with parts.rounded_sites(["up_sums"]):
+        assert dtypes() == (torch.float32, torch.bfloat16, True)
+    assert dtypes() == (torch.float32, torch.float32, True)
+
+
+@pytest.mark.parametrize("n_steps,cudnn_benchmark", [(3, False), (5, True)])
+def test_vox_rehearsal_on_the_cpu(tmp_path, monkeypatch, n_steps, cudnn_benchmark):
     """The --vox mode at a tiny size: a few identities of 16 px from
-    ``scripts/make_hard_vox_ds.py``, the port's CLI for 3 steps (5 to the epoch's
-    end), the eval CLI's grid of the step-3 checkpoint, and ``--report`` over the
-    committed CSVs with the bar's verdict."""
+    ``scripts/make_hard_vox_ds.py`` (5 steps an epoch), the port's CLI for
+    ``n_steps`` steps (on to the epoch's end; 5 ends an epoch, where the loop,
+    which numbers its steps from 0, would stop one short), the eval CLI's grid of
+    the checkpoint at ``n_steps``, and ``--report`` over the committed CSVs with
+    the bar's verdict."""
     ds = tmp_path / "ds"
     subprocess.run([sys.executable, h2h.MAKE_VOX_SET, "--out", str(ds), "--n_identities", "4",
                     "--val_identities", "2", "--videos_per_identity", "2",
@@ -209,12 +237,13 @@ def test_vox_rehearsal_on_the_cpu(tmp_path, monkeypatch):
     out, csvs = tmp_path / "runs", tmp_path / "csv"
     monkeypatch.chdir(REPO)
     h2h.main(["--vox", "--device", "cpu", "--ds_root", str(ds), "--outdir", str(out),
-              "--csv_dir", str(csvs), "--n_steps", "3", "--img_size", "16", "--style_dim", "32",
-              "--batch_size", "16"])
+              "--csv_dir", str(csvs), "--n_steps", str(n_steps), "--img_size", "16",
+              "--style_dim", "32", "--batch_size", "16"]
+             + (["--cudnn_benchmark"] if cudnn_benchmark else []))
+    grid = f"port_hardvox_s1_eval_{n_steps:08d}.csv"
     assert sorted(p.name for p in csvs.iterdir()) == [
-        "port_hardvox_s1_args.json", "port_hardvox_s1_eval_00000003.csv",
-        "port_hardvox_set.json"]
-    with open(csvs / "port_hardvox_s1_eval_00000003.csv", newline="") as f:
+        "port_hardvox_s1_args.json", grid, "port_hardvox_set.json"]
+    with open(csvs / grid, newline="") as f:
         lines = list(csv.reader(f))
     with open(REPO / h2h.JAX_VOX_DIR / "eval_step00002500.csv", newline="") as f:
         assert lines[0] == next(csv.reader(f))
@@ -223,12 +252,13 @@ def test_vox_rehearsal_on_the_cpu(tmp_path, monkeypatch):
     args = json.loads((csvs / "port_hardvox_s1_args.json").read_text())
     assert (args["dataset_type"], args["img_channels"], args["reg_param"], args["au_lr"],
             args["im_lr"], args["env_noise_mapping_lr"], args["compute_dtype"],
-            args["device_data"], args["seed"]) == (
-        "voxceleb2", 3, 10.0, 1e-4, 1e-4, 1e-6, "bfloat16", "on", 1)
+            args["device_data"], args["seed"], args["cudnn_benchmark"]) == (
+        "voxceleb2", 3, 10.0, 1e-4, 1e-4, 1e-6, "bfloat16", "on", 1, cudnn_benchmark)
+    assert args["ds_n_examples_per_cls"] * 2 * 2 // 16 == 5  # steps an epoch
     record = json.loads((csvs / "port_hardvox_set.json").read_text())
     assert (record["sha256_paths_and_pixels"], record["images"]) == h2h.set_digest(str(ds), "jpg")
     assert record["images"] == 4 * 2 * 12
-    assert "model_00000003" in {p.name for p in (out / "seed_1" / "ckpts").iterdir()}
+    assert f"model_{n_steps:08d}" in {p.name for p in (out / "seed_1" / "ckpts").iterdir()}
     # the bar: the port's reading at step 2500 against the JAX run's six
     rows = h2h.load_vox_aucs(str(csvs))
     assert {k[1] for k in rows if k[0] == "jax"} == {2500, 5000, 7500, 10000, 12500, 14879}

@@ -296,9 +296,10 @@ def test_cli_flags_are_the_jax_clis_without_the_tpu_only_ones():
     port = tcli.build_parser()
     port_flags = {s for a in port._actions for s in a.option_strings}
     assert TPU_ONLY_FLAGS <= jax_flags
-    assert port_flags - {"-h", "--help", "--device"} == jax_flags - TPU_ONLY_FLAGS - {"-h", "--help"}
+    port_only = {"-h", "--help", "--device", "--cudnn_benchmark"}
+    assert port_flags - port_only == jax_flags - TPU_ONLY_FLAGS - {"-h", "--help"}
     defaults = vars(port.parse_args(["--dataset_root", "ds"]))
-    assert defaults["device"] == "cuda"
+    assert defaults["device"] == "cuda" and defaults["cudnn_benchmark"] is False
     cfg = tconfig.ImageGameConfig.from_dict(defaults)
     assert cfg == tconfig.ImageGameConfig(dataset_root="ds")
 
