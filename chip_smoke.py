@@ -121,6 +121,16 @@ Phases (each prints its lines; the first failure exits non-zero):
               the launches of the run and of each row; fails on a non-finite
               metric or a replay AUC under 0.9 (``study_launches``: the
               training run).
+ 16. data parallel: ``scripts/torch_data_parallel.py check``: k ranks over
+              NCCL, one a card, with k >= 2 visible cards; with one, two
+              ranks on it over gloo (NCCL refuses two ranks on one card);
+              at the flagship with a global B of 128: 2 f32 steps (TF32 off,
+              cuDNN deterministic) held to one process on the same batches
+              and noise within the JAX suite's mesh tolerances
+              (``tests/test_image_training.py:159-174``), every parameter,
+              u/v and Adam moment bit-equal across ranks, then 4 bf16 steps
+              finite with one step's launches a step on every rank, and
+              steps/s (``dp_launches``: rank 0's bf16 steps).
 The second-to-last line is a JSON summary of the kernels, with times per
 flagship, VoxCeleb and study step and per gim-vs-gim eval batch of each
 config (sum over sites of ms x launches), and the launches of each run
@@ -312,7 +322,7 @@ SMALL_SEEDS, SMALL_STEPS, SMALL_TIMED = 3, 10, 10
 MULTISEED_TOL = 1e-4
 MULTISEED_FLIPS = 4  # a tensor's entries whose Adam step may take the other sign (as in the
 # R1 train-step test of the CPU suite)
-N_PHASES = 15
+N_PHASES = 16
 
 # NVIDIA H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -1098,7 +1108,7 @@ def kernel_results() -> dict:
         name: {"name": name, "route": route, "source": src, "replaces": rep,
                "launches": 0, "vox_launches": 0, "eval_launches": 0, "vox_eval_launches": 0,
                "gaussian_launches": 0, "img_att_launches": 0, "multiseed_launches": 0,
-               "inventory_launches": 0, "study_launches": 0,
+               "inventory_launches": 0, "study_launches": 0, "dp_launches": 0,
                **{f"{p}launches_per_batch_by_pairing": {pair: n[name] for pair, n in table.items()}
                   for p, table in pairings.items()},
                "max_abs_err": 0.0,
@@ -2701,6 +2711,28 @@ def run_hard_study(counters, set_proc: subprocess.Popen) -> dict:
     return launches
 
 
+# ---- phase 16: data parallel
+
+def run_data_parallel(seed: int) -> dict:
+    """Phase 16 (``scripts/torch_data_parallel.py check``); returns rank 0's launches
+    over its bf16 steps."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_data_parallel.py")
+    spec = importlib.util.spec_from_file_location("torch_data_parallel", path)
+    dp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(dp)
+    try:
+        summary = dp.check(seed)
+    except SystemExit as e:
+        fail(f"data parallel: {e}")
+    dp.print_check(summary)
+    if not summary["ok"]:
+        fail("data parallel: " + "; ".join(summary["problems"]))
+    return summary["launches"][0]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2844,6 +2876,12 @@ def main() -> None:
           f"then the eval grid on its val split", flush=True)
     for name, n in run_hard_study(counters, hard_set).items():
         results[name]["study_launches"] = n
+
+    print(f"[16/{N_PHASES}] data parallel: the flagship step on every visible card, or two "
+          f"ranks on one card over gloo; ranks against one process (the JAX suite's mesh "
+          f"tolerances) and against each other (bit for bit)", flush=True)
+    for name, n in run_data_parallel(args.seed).items():
+        results[name]["dp_launches"] = n
 
     print(smi_line())
     print(json.dumps({"kernels": list(results.values())}))

@@ -247,8 +247,13 @@ class OmniglotGIMDataSet:
         (None when the classes' image counts differ)."""
         return self._stacked
 
-    def sample_batch(self, indices, seed: int) -> Dict[str, np.ndarray]:
-        """Assemble a whole batch in one vectorised gather (the loader's fast path)."""
+    def sample_batch(self, indices, seed: int,
+                     rows: Optional[Tuple[int, int]] = None) -> Dict[str, np.ndarray]:
+        """Assemble a whole batch in one vectorised gather (the loader's fast path).
+
+        ``rows`` (lo, hi) assembles only those episodes of the batch, from the
+        whole batch's draw, so the parts of a batch concatenate to the batch.
+        """
         if self._stacked is None:
             raise NotImplementedError("classes have unequal image counts")
         rng = np.random.default_rng(seed)
@@ -257,7 +262,10 @@ class OmniglotGIMDataSet:
         t = self._stacked.shape[1]
         take = self.m + self.n + self.si
         # B independent disjoint samples: argsort of uniform noise
-        order = np.argsort(rng.random((b, t)), axis=1)[:, :take]
+        noise = rng.random((b, t))
+        if rows is not None:
+            cls, noise = cls[rows[0]:rows[1]], noise[rows[0]:rows[1]]
+        order = np.argsort(noise, axis=1)[:, :take]
         gathered = self._stacked[cls[:, None], order]  # [B, take, H, W, 1]
         return {
             "leaked_sample": gathered[:, : self.m],
@@ -349,6 +357,10 @@ class EpisodicBatchLoader:
     Batches are dicts of stacked uint8 numpy arrays; a thread pool
     parallelises decoding for disk-backed datasets (RAM-cached Omniglot
     needs none); ``epoch`` seeds the episode RNG so runs are reproducible.
+    ``shard`` (rank, world) assembles only the rank's contiguous slice of each
+    batch of ``batch_size`` (which ``world`` must divide), from the same order
+    and episode seeds, so the ranks' slices concatenate to the batch one
+    process assembles.
     """
 
     def __init__(
@@ -359,9 +371,14 @@ class EpisodicBatchLoader:
         drop_last: bool = True,
         num_workers: int = 0,
         seed: int = 0,
+        shard: Tuple[int, int] = (0, 1),
     ):
+        if batch_size % shard[1] or (shard[1] > 1 and not drop_last):
+            raise ValueError(f"batch_size {batch_size} (drop_last {drop_last}) does not divide "
+                             f"over {shard[1]} ranks")
         self.ds = ds
         self.batch_size = batch_size
+        self.shard = shard
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = num_workers
@@ -376,12 +393,19 @@ class EpisodicBatchLoader:
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _assemble(self, indices: Sequence[int], rng_seeds: Sequence[int]):
-        # vectorised fast path (RAM-cached datasets): one gather per batch
+        rank, world = self.shard
+        part = len(indices) // world
+        rows = (rank * part, (rank + 1) * part) if world > 1 else None
+        # vectorised fast path (RAM-cached datasets): one gather per batch,
+        # seeded by the whole batch's first episode
         if hasattr(self.ds, "sample_batch"):
             try:
-                return self.ds.sample_batch(indices, int(rng_seeds[0]) & (2**63 - 1))
+                return self.ds.sample_batch(indices, int(rng_seeds[0]) & (2**63 - 1),
+                                            rows=rows)
             except NotImplementedError:
                 pass
+        if rows is not None:
+            indices, rng_seeds = indices[rows[0]:rows[1]], rng_seeds[rows[0]:rows[1]]
         if self.num_workers > 0:
             with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
                 episodes = list(

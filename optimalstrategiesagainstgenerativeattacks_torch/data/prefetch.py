@@ -8,7 +8,9 @@ yields the batch, and marks each tensor as used by that stream
 (``record_stream``), so the caching allocator does not hand the memory to the
 side stream's next copy while the step still reads it.  The batch assembly
 and the copy overlap the previous step.  Batches stay uint8 until the train
-step normalises them.
+step normalises them.  In a data-parallel run each rank copies its shard to
+its own card: the loop passes the rank's device, and a bare "cuda" means
+the current card, which ``parallel/mesh.py:init_process`` sets first.
 """
 
 from __future__ import annotations

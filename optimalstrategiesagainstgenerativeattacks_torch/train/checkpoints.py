@@ -9,7 +9,8 @@ one ``torch.save`` file holding global_step, last_epoch, both players'
 ``state_dict``s (the spectral u/v buffers included), both Adams, both
 MultiStepLR schedulers where the state has them (the image game's; the
 Gaussian game's has none) and the state of its generator: everything a
-resumed run needs to take the same steps as one never interrupted.
+resumed run needs to take the same steps as one never interrupted.  In a
+data-parallel run (``parallel/mesh.py``) only rank 0 writes; every rank loads.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import re
 from typing import Tuple
 
 import torch
+
+from optimalstrategiesagainstgenerativeattacks_torch.parallel.mesh import is_main
 
 CKPT_PREFIX = "model_"
 _PARTS = ("au", "im", "opt_au", "opt_im", "sched_au", "sched_im")
@@ -44,16 +47,20 @@ class CheckpointIO:
 
     def __init__(self, checkpoint_dir: str):
         self.checkpoint_dir = os.path.abspath(checkpoint_dir)
-        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        if is_main():
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
 
     def path_for_step(self, step: int) -> str:
         return os.path.join(self.checkpoint_dir, f"{CKPT_PREFIX}{step:08d}")
 
     def save(self, state, step: int, last_epoch: int = 1) -> str:
+        """Write the snapshot of ``step`` (on rank 0 only); returns its path."""
+        path = self.path_for_step(step)
+        if not is_main():
+            return path
         payload = {name: getattr(state, name).state_dict() for name in _parts(state)}
         payload.update(global_step=int(step), last_epoch=int(last_epoch),
                        generator=state.generator.get_state())
-        path = self.path_for_step(step)
         tmp = path + ".tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)  # a reader sees a whole snapshot or none

@@ -17,6 +17,13 @@ Counterpart of ``optimalstrategiesagainstgenerativeattacks_tpu/train/gaussian.py
     statistics every ``save_stats_every`` steps, step-keyed checkpoints,
     ``pretrained``, resume, and a save on KeyboardInterrupt.
 
+Data parallel (``parallel/mesh.py``, the JAX step's ``mesh`` argument): in a
+process group every rank draws the global batch and noise from the shared
+generator and keeps its slice, the gradients are averaged over the ranks
+before each Adam step and the metrics are means over the ranks, so k ranks
+take the step one process takes; ``cfg.batch_size`` is the global batch and
+the world size must divide it.  Rank 0 alone writes logs and checkpoints.
+
 Both players use Adam at torch's defaults (betas 0.9 / 0.999, eps 1e-8),
 which are optax ``adam``'s.  The models have no spectral norm and the game no
 hand-written kernel: a step is two small MLPs.
@@ -32,6 +39,7 @@ import torch
 from optimalstrategiesagainstgenerativeattacks_torch.models import gaussian as gmodels
 from optimalstrategiesagainstgenerativeattacks_torch.nn.init import init_module
 from optimalstrategiesagainstgenerativeattacks_torch.ops.stats import custom_std
+from optimalstrategiesagainstgenerativeattacks_torch.parallel import mesh
 from optimalstrategiesagainstgenerativeattacks_torch.train.checkpoints import (
     CheckpointIO,
     resolve_ckpt_path,
@@ -97,13 +105,14 @@ def create_state(cfg: GaussianGameConfig, device) -> GaussianState:
 def synth_batch(cfg: GaussianGameConfig, generator: torch.Generator,
                 device) -> Dict[str, torch.Tensor]:
     """mu ~ N(0, prior^2 I) [B, d]; real [B, n, d], leaked [B, m, d], si [B, k, d]
-    ~ N(mu, src^2 I); sigma = src [B, d]."""
-    b, d = cfg.batch_size, cfg.src_dim
-    mu = cfg.prior_sigma * torch.randn((b, d), generator=generator, device=device)
+    ~ N(mu, src^2 I); sigma = src [B, d].  In a process group, this rank's slice
+    of the global batch's draws (B = cfg.batch_size / world)."""
+    lo, hi = mesh.shard_bounds(cfg.batch_size)  # the world size must divide the batch
+    b, d = hi - lo, cfg.src_dim
+    mu = cfg.prior_sigma * mesh.randn_slice((b, d), generator, device)
 
     def draw(s):
-        return mu[:, None, :] + cfg.src_sigma * torch.randn((b, s, d), generator=generator,
-                                                            device=device)
+        return mu[:, None, :] + cfg.src_sigma * mesh.randn_slice((b, s, d), generator, device)
 
     return {"mu": mu, "sigma": torch.full((b, d), cfg.src_sigma, device=device),
             "real_sample": draw(cfg.n), "leaked_sample": draw(cfg.m), "si_sample": draw(cfg.k)}
@@ -114,17 +123,21 @@ def train_step(state: GaussianState, batch: Optional[dict] = None,
     """One game step, updating ``state`` in place.
 
     ``batch`` (``synth_batch``'s keys) and ``z`` [B, n, d] replace the draws
-    from the state's generator (tests inject both).  Returns the metrics as
-    0-dim f32 tensors on the device (no host sync).
+    from the state's generator (tests inject both; in a process group, this
+    rank's slices).  Returns the metrics as 0-dim f32 tensors on the device
+    (no host sync), means over the ranks in a process group.
     """
     cfg = state.cfg
     au, im = state.au, state.im
     if batch is None:
         batch = synth_batch(cfg, state.generator, state.device)
     real, leaked, si = batch["real_sample"], batch["leaked_sample"], batch["si_sample"]
+    if z is None:
+        z = mesh.randn_slice((leaked.shape[0], cfg.n, cfg.src_dim), state.generator,
+                             state.device, leaked.dtype)
 
     # ---- impersonator step, the authenticator frozen
-    fake = im(leaked, cfg.n, cfg.remove_noise_mean, z=z, generator=state.generator)
+    fake = im(leaked, cfg.n, cfg.remove_noise_mean, z=z)
     im_loss = bce_with_logits(au(fake, si), 1.0).mean()
     adam_step(im, state.opt_im, im_loss)
     fake = fake.detach()
@@ -156,7 +169,7 @@ def train_step(state: GaussianState, batch: Optional[dict] = None,
         def l1(a, b_):
             return (a - b_).abs().mean()
 
-        return {
+        return mesh.all_reduce_mean_dict({
             "im_loss": im_loss.detach(),
             "au_loss": au_loss.detach(),
             "au_loss_on_real": loss_on_real.mean(),
@@ -172,7 +185,7 @@ def train_step(state: GaussianState, batch: Optional[dict] = None,
             "im_l1_dist_from_gt_std": l1(custom_std(fake), sigma),
             "real_l1_dist_from_gt_sample_mean": l1(real.mean(1), mu),
             "real_l1_dist_from_gt_std": l1(custom_std(real), sigma),
-        }
+        })
 
 
 def train_chunk(state: GaussianState, n_steps: int) -> torch.Tensor:
@@ -196,7 +209,9 @@ def train_gim_gaussian(cfg: GaussianGameConfig, logger=None, checkpoint_io=None,
     multiples of ``save_stats_every``, the distance statistics.  A checkpoint
     is written when a chunk crosses a multiple of ``save_every`` (and after
     the first chunk when ``save_every <= chunk``), at the end, and on
-    KeyboardInterrupt (then it returns).  Returns the state.
+    KeyboardInterrupt (then it returns).  In a process group every rank takes
+    the steps and rank 0 writes, with a barrier after each save.  Returns the
+    state.
     """
     from optimalstrategiesagainstgenerativeattacks_torch.train.logger import Logger
 
@@ -207,14 +222,16 @@ def train_gim_gaussian(cfg: GaussianGameConfig, logger=None, checkpoint_io=None,
     )
     checkpoint_io = checkpoint_io or CheckpointIO(os.path.join(cfg.outdir, "ckpts"))
     state = create_state(cfg, device)
-    print(f"Authenticator has {sum(p.numel() for p in state.au.parameters())} parameters")
-    print(f"impersonator has {sum(p.numel() for p in state.im.parameters())} parameters")
+    if mesh.is_main():
+        print(f"Authenticator has {sum(p.numel() for p in state.au.parameters())} parameters")
+        print(f"impersonator has {sum(p.numel() for p in state.im.parameters())} parameters")
     if cfg.pretrained:
         checkpoint_io.load(resolve_ckpt_path(cfg.pretrained, cfg.outdir), state,
                            players_only=True)
     if cfg.resume_from_ckpt:
         gstep, _ = checkpoint_io.load(resolve_ckpt_path(cfg.resume_from_ckpt, cfg.outdir), state)
-        print(f"Resuming training from iteration {gstep}")
+        if mesh.is_main():
+            print(f"Resuming training from iteration {gstep}")
 
     chunk = max(1, min(cfg.log_every, cfg.save_stats_every))
     start_step = state.step + 1
@@ -231,7 +248,7 @@ def train_gim_gaussian(cfg: GaussianGameConfig, logger=None, checkpoint_io=None,
                     logger.add_scalar(category, k, host[key], gs)
 
     iterator = range(n_chunks)
-    if progress:
+    if progress and mesh.is_main():
         try:
             from tqdm import tqdm
 
@@ -247,9 +264,11 @@ def train_gim_gaussian(cfg: GaussianGameConfig, logger=None, checkpoint_io=None,
             if (first_step // cfg.save_every) != ((gs + 1) // cfg.save_every) or (
                     first_step == 0 and cfg.save_every <= chunk):
                 checkpoint_io.save(state, state.step)
+                mesh.barrier()
     except KeyboardInterrupt:
         print("\nKeyboardInterrupt\nSaving checkpoint...\n")
         checkpoint_io.save(state, state.step)
         return state
     checkpoint_io.save(state, state.step)
+    mesh.barrier()
     return state

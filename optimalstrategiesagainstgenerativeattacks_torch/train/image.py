@@ -32,6 +32,12 @@ device, or the host loader behind a prefetch thread), the same scalar tags
 and cadences, checkpoints, image grids, eval over the val set, and a save on
 KeyboardInterrupt or PermissionError.  Per-step metrics stay on the device in a [log_every, K]
 buffer that reaches the host in one transfer per flush.
+
+Data parallel (``parallel/mesh.py``, the JAX step's ``mesh`` argument): in a
+process group each rank takes its shard of every batch and its slice of the
+global noise draw, the gradients are averaged over the ranks before each Adam
+step, and the metrics, diagnostics and eval sums are means over the ranks, so
+k ranks take the step one process takes on the global batch.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from optimalstrategiesagainstgenerativeattacks_torch.models import image as imod
 from optimalstrategiesagainstgenerativeattacks_torch.nn.init import init_module
 from optimalstrategiesagainstgenerativeattacks_torch.ops.spectral import power_iterate
 from optimalstrategiesagainstgenerativeattacks_torch.ops.stats import custom_std
+from optimalstrategiesagainstgenerativeattacks_torch.parallel import mesh
 from optimalstrategiesagainstgenerativeattacks_torch.train.checkpoints import (
     CheckpointIO,
     resolve_ckpt_path,
@@ -178,20 +185,33 @@ def r1_penalty(cfg: ImageGameConfig, out_real, real, si):
                             + g_si.float().square().reshape(b, -1).sum(1))
 
 
+def noise(cfg: ImageGameConfig, b: int, generator: Optional[torch.Generator], device):
+    """The impersonator's noise z [b, n, style] for ``b`` episodes: this rank's
+    slice of the global batch's draw (``mesh.randn_slice``), the model's own
+    draw without a process group."""
+    return mesh.randn_slice((b, cfg.n, cfg.style_dim), generator, device,
+                            compute_dtype(cfg) or torch.float32)
+
+
 def train_step(state: GameState, batch, z: Optional[torch.Tensor] = None):
     """One game step, updating ``state`` in place.
 
-    ``z`` [B, n, style] replaces the impersonator's noise draw (tests inject
-    it); otherwise it comes from ``state.generator``.  Returns (metrics, fake)
-    with the metrics as 0-dim f32 tensors on the device (no host sync).
+    ``batch`` is this rank's shard of the global batch.  ``z`` [B, n, style]
+    (this rank's rows) replaces the impersonator's noise draw (tests inject
+    it); otherwise it comes from ``state.generator`` (``noise``).  In a process
+    group the gradients and the metrics are means over the ranks.  Returns
+    (metrics, fake) with the metrics as 0-dim f32 tensors on the device (no
+    host sync) and this rank's fake.
     """
     cfg = state.cfg
     au, im = state.au, state.im
     step = state.step + 1
     real, leaked, si = prepare_batch(cfg, batch, state.device)
+    if z is None:
+        z = noise(cfg, real.shape[0], state.generator, state.device)
 
     def im_loss():
-        fake = im(leaked, cfg.n, cfg.remove_noise_mean, z=z, generator=state.generator)
+        fake = im(leaked, cfg.n, cfg.remove_noise_mean, z=z)
         return bce_with_logits(au(fake, si), 1.0).mean(), fake
 
     # ---- impersonator
@@ -238,7 +258,7 @@ def train_step(state: GameState, batch, z: Optional[torch.Tensor] = None):
             # a fill on the device: copying a host scalar would synchronise
             "im_trained": torch.full((), im_trained, device=real.device),
         }
-    return metrics, fake
+    return mesh.all_reduce_mean_dict(metrics), fake
 
 
 @torch.no_grad()
@@ -257,10 +277,14 @@ def eval_step(state: GameState, batch, generator: Optional[torch.Generator] = No
               z: Optional[torch.Tensor] = None):
     """Both players' losses and accuracies on a batch, without any update
     (the reference's ``make_eval_step``): 0-dim f32 tensors on the device.
-    ``z`` [B, n, style] replaces the noise draw from ``generator``."""
+    ``z`` [B, n, style] replaces the noise draw from ``generator``.  In a
+    process group ``batch`` is this rank's shard, the noise its slice of the
+    global draw, and the metrics this rank's (``run_eval`` averages them)."""
     cfg = state.cfg
     real, leaked, si = prepare_batch(cfg, batch, state.device)
-    fake = state.im(leaked, cfg.n, cfg.remove_noise_mean, z=z, generator=generator)
+    if z is None:
+        z = noise(cfg, real.shape[0], generator, state.device)
+    fake = state.im(leaked, cfg.n, cfg.remove_noise_mean, z=z)
     im_loss = bce_with_logits(state.au(fake, si), 1.0).mean()
     out_real, out_fake = au_outputs(state.au, real, fake, si)
     loss_on_real = bce_with_logits(out_real, 1.0)
@@ -284,7 +308,9 @@ def diag(state: GameState, batch, fake):
     """Encoder-statistic diagnostics of the authenticator (the reference's
     ``make_diag_fn``): how far the real and fake sets' mean features sit from
     the registration set's, and each set's feature std, per encoder.  One
-    pass of both encoders over [real; si; fake]."""
+    pass of both encoders over [real; si; fake].  Each is a mean of
+    per-episode values, so in a process group the mean of the ranks' shards
+    is the global batch's."""
     cfg = state.cfg
     real, _, si = prepare_batch(cfg, batch, state.device)
     b, n, k = real.shape[0], real.shape[1], si.shape[1]
@@ -300,7 +326,7 @@ def diag(state: GameState, batch, fake):
         out[f"au_{enc}_mean_abs_fake_minus_si"] = (x_fake.mean(1) - si_mean).abs().mean()
         for name, s in (("real", x_real), ("si", x_si), ("fake", x_fake)):
             out[f"au_{enc}_std_{name}"] = custom_std(s).mean()
-    return out
+    return mesh.all_reduce_mean_dict(out)
 
 
 def train_gim_imgs_steps(cfg: ImageGameConfig, batches: Iterable, n_steps: int,
@@ -351,8 +377,11 @@ def sample_and_save_imgs(logger, state: GameState, ds, ds_prefix: str, indices, 
 def run_eval(state: GameState, ds, logger, batch_size: int, key: int) -> dict:
     """Eval over the val set (the reference's ``gim_img_training.py:98-154``),
     logging the means; the sums reach the host in one transfer.  Batch i's noise
-    comes from ``noise_generator(device, key, state.step, i)``."""
-    loader = EpisodicBatchLoader(ds, batch_size=batch_size, shuffle=False, drop_last=True)
+    comes from ``noise_generator(device, key, state.step, i)``.  In a process
+    group each rank evaluates its shard of every batch and the sums are
+    averaged over the ranks."""
+    loader = EpisodicBatchLoader(ds, batch_size=batch_size, shuffle=False, drop_last=True,
+                                 shard=(mesh.rank(), mesh.world_size()))
     sums, count = None, 0
     for i, batch in enumerate(loader):
         m = eval_step(state, batch, noise_generator(state.device, key, state.step, i))
@@ -361,7 +390,7 @@ def run_eval(state: GameState, ds, logger, batch_size: int, key: int) -> dict:
         count += 1
     if count == 0:
         return {}
-    means = dict(zip(EVAL_KEYS, (sums / count).cpu().tolist()))
+    means = dict(zip(EVAL_KEYS, (mesh.all_reduce_mean(sums) / count).cpu().tolist()))
     gs = state.step
     logger.add_scalar("eval_losses", "dis_loss", means["au_loss"], gs)
     logger.add_scalar("eval_losses", "dis_loss_on_real", means["au_loss_on_real"], gs)
@@ -381,12 +410,18 @@ def train_loader(cfg: ImageGameConfig, train_ds, batch_size: int, device):
     "auto" stages the dataset on ``device`` (``DeviceEpisodicLoader``) when it
     has a uniform ``stacked_cache()``; "on" requires that; "off", or no such
     cache, takes the host's ``EpisodicBatchLoader``, whose batches the loop
-    copies through ``device_prefetch``.
+    copies through ``device_prefetch``.  In a process group the device loader
+    is refused ("on" raises, "auto" takes the host loader) and each rank's
+    host loader assembles its shard of every global batch of ``batch_size``.
     """
     if cfg.device_data not in ("auto", "on", "off"):
         raise ValueError(f"device_data {cfg.device_data!r}: auto, on or off")
+    world = mesh.world_size()
+    if cfg.device_data == "on" and world > 1:
+        raise ValueError("device_data='on' is single-card only; a data-parallel run shards "
+                         "the host loader's batches over the ranks")
     cache = None
-    if cfg.device_data != "off" and hasattr(train_ds, "stacked_cache"):
+    if cfg.device_data != "off" and world == 1 and hasattr(train_ds, "stacked_cache"):
         cache = train_ds.stacked_cache()
     if cache is not None:
         print(f"device-resident dataset: {cache.nbytes / 1e6:.0f} MB uint8 staged to "
@@ -395,9 +430,13 @@ def train_loader(cfg: ImageGameConfig, train_ds, batch_size: int, device):
     if cfg.device_data == "on":
         raise ValueError("device_data='on' but the dataset has no uniform stacked cache "
                          "(unequal images per class?)")
-    print(f"host loader, prefetch depth {cfg.prefetch_depth}")
+    if mesh.is_main():
+        print(f"host loader, prefetch depth {cfg.prefetch_depth}"
+              + (f", each of {world} ranks assembling {batch_size // world} of {batch_size}"
+                 if world > 1 else ""))
     return EpisodicBatchLoader(train_ds, batch_size=batch_size, shuffle=True, drop_last=True,
-                               num_workers=cfg.num_workers, seed=cfg.seed)
+                               num_workers=cfg.num_workers, seed=cfg.seed,
+                               shard=(mesh.rank(), world))
 
 
 def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress: bool = True,
@@ -416,7 +455,15 @@ def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress
     step, batch): they leave the training run's stream as it is, and a resumed
     run samples and evaluates as an uninterrupted one.  ``cudnn_benchmark``: cuDNN
     picks each conv's algorithm by timing it (on the H100 the VoxCeleb step takes
-    ~17 % less); the run is then not bit-reproducible.  Returns the state.
+    ~17 % less); the run is then not bit-reproducible.
+
+    In a process group (``parallel/mesh.py``) every rank runs the loop on its
+    shard of each batch (``adjust_batch_size`` rounds both batches to a
+    multiple of the world size), loads the same checkpoints, and takes the
+    same steps; rank 0 alone writes logs, image grids and checkpoints, with a
+    barrier after each save.  A PermissionError there is raised after its
+    save, since the other ranks cannot skip the rest of the epoch with it.
+    Returns the state.
     """
     torch.backends.cudnn.benchmark = cudnn_benchmark
     au, im = build_models(cfg)
@@ -428,8 +475,10 @@ def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress
     checkpoint_io = CheckpointIO(os.path.join(cfg.outdir, cfg.ckpt_dir_name))
 
     state = create_state(cfg, au, im, cfg.seed, device)
-    print(f"Authenticator has {sum(p.numel() for p in au.parameters())} parameters")
-    print(f"impersonator has {sum(p.numel() for p in im.parameters())} parameters")
+    world = mesh.world_size()
+    if mesh.is_main():
+        print(f"Authenticator has {sum(p.numel() for p in au.parameters())} parameters")
+        print(f"impersonator has {sum(p.numel() for p in im.parameters())} parameters")
     if cfg.pretrained:
         checkpoint_io.load(resolve_ckpt_path(cfg.pretrained, cfg.outdir), state,
                            players_only=True)
@@ -437,10 +486,11 @@ def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress
     if cfg.resume_from_ckpt:
         gstep, last_epoch = checkpoint_io.load(
             resolve_ckpt_path(cfg.resume_from_ckpt, cfg.outdir), state)
-        print(f"Resuming training from iteration {gstep}")
+        if mesh.is_main():
+            print(f"Resuming training from iteration {gstep}")
 
-    train_bs = min(cfg.batch_size, len(train_ds))
-    val_bs = min(cfg.batch_size, len(val_ds))
+    train_bs = mesh.adjust_batch_size(len(train_ds), cfg.batch_size, world)
+    val_bs = mesh.adjust_batch_size(len(val_ds), cfg.batch_size, world)
     train_eval_indices = list(range(0, len(train_ds), max(1, len(train_ds) // 10)))
     val_eval_indices = list(range(0, len(val_ds), max(1, len(val_ds) // 10)))
     loader = train_loader(cfg, train_ds, train_bs, device)
@@ -490,6 +540,10 @@ def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress
         if trained.any():
             logger.add_scalar("train_losses", "gen_loss", float(host["im_loss"][trained].mean()), gs)
 
+    def save(gs: int, ep: int):
+        checkpoint_io.save(state, gs, last_epoch=ep)
+        mesh.barrier()
+
     def log_diag(batch, fake, gs: int):
         d = diag(state, batch, fake)
         vals = dict(zip(DIAG_KEYS, torch.stack([d[k] for k in DIAG_KEYS]).cpu().tolist()))
@@ -528,8 +582,8 @@ def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress
                 if gs % cfg.log_enc_every == 0:
                     log_diag(batch, fake, gs)
                 if gs % cfg.save_every == 0:
-                    checkpoint_io.save(state, gs, last_epoch=ep)
-                if gs % cfg.save_imgs_every == 0:
+                    save(gs, ep)
+                if gs % cfg.save_imgs_every == 0 and mesh.is_main():
                     sample_and_save_imgs(logger, state, train_ds, "train", train_eval_indices,
                                          sample_key, cfg.dbg)
                     sample_and_save_imgs(logger, state, val_ds, "val", val_eval_indices,
@@ -538,7 +592,7 @@ def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress
                     run_eval(state, val_ds, logger, val_bs, sample_key)
 
     epoch_iter = range(last_epoch, cfg.n_epochs)
-    if progress:
+    if progress and mesh.is_main():
         try:
             from tqdm import tqdm
 
@@ -557,11 +611,13 @@ def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress
             except PermissionError as pe:
                 print(f"\nPermissionError\n{pe}\nSaving checkpoint...\n")
                 checkpoint_io.save(state, state.step, last_epoch=ep)
+                if world > 1:
+                    raise
                 continue
         cur_epoch = cfg.n_epochs
     except KeyboardInterrupt:
         print("\nKeyboardInterrupt\nSaving checkpoint...\n")
         checkpoint_io.save(state, state.step, last_epoch=cur_epoch)
         return state
-    checkpoint_io.save(state, state.step, last_epoch=cur_epoch)
+    save(state.step, cur_epoch)
     return state

@@ -7,7 +7,8 @@ output-dir contract (``<outdir>/{logs, imgs, tb}``,
 ``imgs/<category>/<k>/%08d.png`` grids), an in-memory picklable stats dict,
 and tensorboardX scalars/images/figures/embeddings when tensorboardX is
 installed.  Grids are assembled in numpy; PIL is imported only to write a
-PNG.
+PNG.  In a data-parallel run (``parallel/mesh.py``) a logger on any rank but
+0 writes nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import pickle
 from typing import Optional
 
 import numpy as np
+
+from optimalstrategiesagainstgenerativeattacks_torch.parallel.mesh import is_main
 
 try:
     import tensorboardX
@@ -65,12 +68,17 @@ class Logger:
         self.stats = dict()
         self.log_dir = log_dir
         self.img_dir = img_dir
-        os.makedirs(log_dir, exist_ok=True)
-        os.makedirs(img_dir, exist_ok=True)
         self.monitoring_dir = tensorboard_dir
-        self.tb = tensorboardX.SummaryWriter(tensorboard_dir) if _HAVE_TB else None
+        self.writes = is_main()
+        self.tb = None
+        if self.writes:
+            os.makedirs(log_dir, exist_ok=True)
+            os.makedirs(img_dir, exist_ok=True)
+            self.tb = tensorboardX.SummaryWriter(tensorboard_dir) if _HAVE_TB else None
 
     def add_scalar(self, category: str, k: str, v: float, global_step: int) -> None:
+        if not self.writes:
+            return
         self.stats.setdefault(category, {}).setdefault(k, []).append(
             (int(global_step), float(v))
         )
@@ -79,6 +87,8 @@ class Logger:
 
     def add_imgs(self, imgs: np.ndarray, category: str, k: str, global_step: int, nrow: int = 5) -> None:
         """imgs: [N, H, W, C] in [0, 1]. Writes PNG + TB image."""
+        if not self.writes:
+            return
         outdir = os.path.join(self.img_dir, category, str(k))
         os.makedirs(outdir, exist_ok=True)
         grid = make_grid(np.asarray(imgs), nrow=nrow)
@@ -91,6 +101,8 @@ class Logger:
             )
 
     def add_figure(self, fig, category: str, k: str, global_step: int) -> None:
+        if not self.writes:
+            return
         outdir = os.path.join(self.img_dir, category, str(k))
         os.makedirs(outdir, exist_ok=True)
         fig.savefig(os.path.join(outdir, "%08d.png" % int(global_step)))
@@ -111,6 +123,8 @@ class Logger:
             return default
 
     def save_stats(self, filename: str) -> None:
+        if not self.writes:
+            return
         with open(os.path.join(self.log_dir, filename), "wb") as f:
             pickle.dump(self.stats, f)
 

@@ -12,6 +12,7 @@ from dataclasses import dataclass
 
 import torch
 
+from optimalstrategiesagainstgenerativeattacks_torch.parallel.mesh import all_reduce_grads_
 from optimalstrategiesagainstgenerativeattacks_torch.utils.config import (
     GaussianGameConfig,
     ImageGameConfig,
@@ -57,9 +58,11 @@ class GaussianState:
 def adam_step(module: torch.nn.Module, opt: torch.optim.Optimizer, loss: torch.Tensor) -> None:
     """One optimizer step of ``module`` on ``loss``; the gradient is taken with
     ``torch.autograd.grad`` over the module's parameters only, so a frozen
-    player in the same graph keeps its ``.grad`` untouched."""
+    player in the same graph keeps its ``.grad`` untouched.  In a process group
+    the gradients are averaged over the ranks first (``all_reduce_grads_``)."""
     params = list(module.parameters())
     for p, g in zip(params, torch.autograd.grad(loss, params)):
         p.grad = g
+    all_reduce_grads_(params)
     opt.step()
     opt.zero_grad(set_to_none=True)

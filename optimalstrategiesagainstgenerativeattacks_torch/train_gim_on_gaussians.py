@@ -10,6 +10,11 @@ GPU, ``cpu`` runs on the CPU.  The README's Nash check is ``--src_dim 10 --n 5
 ``theory.game_value``).  The arguments are written to ``<outdir>/args.json``;
 checkpoints go to ``<outdir>/ckpts/model_{step:08d}``, and ``-r`` resumes from
 one.
+
+Data parallel over every visible card by default, as the JAX CLI's mesh, and
+under ``torchrun``, as the image CLI (``train_gim_on_imgs``): the world size
+must divide ``--batch_size``.  With one card, or with ``--device cpu`` and no
+launcher, it runs in one process.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    """Train; returns the state (None in the process that started one worker a card)."""
     args = build_parser().parse_args(argv)
     import torch
 
@@ -73,14 +79,21 @@ def main(argv: Optional[Sequence[str]] = None):
         raise SystemExit("--device cuda: torch.cuda.is_available() is false "
                          "(pass --device cpu to run on the CPU)")
 
+    from optimalstrategiesagainstgenerativeattacks_torch.parallel import mesh
+
+    if mesh.spawn_workers(__spec__.name, argv, args.device):
+        return None
+
     from optimalstrategiesagainstgenerativeattacks_torch.train.gaussian import train_gim_gaussian
     from optimalstrategiesagainstgenerativeattacks_torch.utils.config import (
         GaussianGameConfig,
         save_args,
     )
 
-    save_args(args, args.outdir)
-    return train_gim_gaussian(GaussianGameConfig.from_dict(vars(args)), device=args.device)
+    with mesh.process_group(args.device) as device:
+        if mesh.is_main():
+            save_args(args, args.outdir)
+        return train_gim_gaussian(GaussianGameConfig.from_dict(vars(args)), device=device)
 
 
 if __name__ == "__main__":

@@ -12,6 +12,16 @@ versions; and ``--cudnn_benchmark 1``: cuDNN times its conv algorithms
 --im_lr 1e-4 --env_noise_mapping_lr 1e-6 --reg_param 10``.  The arguments
 are written to ``<outdir>/args.json``; checkpoints go to
 ``<outdir>/<ckpt_dir_name>/model_{step:08d}``, and ``-r`` resumes from one.
+
+Data parallel over every visible card by default, as the JAX CLI's mesh: with
+``--device cuda`` and k > 1 visible cards the CLI starts k workers of itself,
+one a card, with gradients all-reduced over NCCL (``parallel/mesh.py``);
+under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node k -m
+optimalstrategiesagainstgenerativeattacks_torch.train_gim_on_imgs ...``) it
+joins the launcher's group, on the CPU over gloo with ``--device cpu``.  The
+batch sizes are rounded down to a multiple of the world size, rank 0 writes
+everything, and ``--device_data on`` is refused.  With one card, or with
+``--device cpu`` and no launcher, it runs in one process.
 """
 
 from __future__ import annotations
@@ -111,6 +121,7 @@ def make_datasets(cfg):
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    """Train; returns the state (None in the process that started one worker a card)."""
     args = build_parser().parse_args(argv)
     import torch
 
@@ -118,17 +129,24 @@ def main(argv: Optional[Sequence[str]] = None):
         raise SystemExit("--device cuda: torch.cuda.is_available() is false "
                          "(pass --device cpu to run the plain versions on the CPU)")
 
+    from optimalstrategiesagainstgenerativeattacks_torch.parallel import mesh
+
+    if mesh.spawn_workers(__spec__.name, argv, args.device):
+        return None
+
     from optimalstrategiesagainstgenerativeattacks_torch.train.image import train_gim_imgs
     from optimalstrategiesagainstgenerativeattacks_torch.utils.config import (
         ImageGameConfig,
         save_args,
     )
 
-    save_args(args, args.outdir)
-    cfg = ImageGameConfig.from_dict(vars(args))
-    train_ds, val_ds = make_datasets(cfg)
-    return train_gim_imgs(cfg, train_ds, val_ds, device=args.device,
-                          cudnn_benchmark=args.cudnn_benchmark)
+    with mesh.process_group(args.device) as device:
+        if mesh.is_main():
+            save_args(args, args.outdir)
+        cfg = ImageGameConfig.from_dict(vars(args))
+        train_ds, val_ds = make_datasets(cfg)
+        return train_gim_imgs(cfg, train_ds, val_ds, device=device,
+                              cudnn_benchmark=args.cudnn_benchmark)
 
 
 if __name__ == "__main__":

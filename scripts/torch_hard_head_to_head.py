@@ -34,6 +34,16 @@ hold the port's AUCs to the JAX package's recorded ones.
    seeds' [min, max] at that step, both rounded to 3 decimals as the table
    prints them; and, where the port has them, seeds 7-9 against the JAX
    seeds 7-9 at each step of theirs through 4800.
+5. The pooled statistic (``--report``): every (seed, step) reading past step
+   1200 through 4999, pooled over seeds and steps, of the JAX package, the
+   port (``docs/hard_head_to_head`` and ``seed_spread/change``) and the port
+   at 747d844 (``parent_747d844`` and ``seed_spread/parent_747d844``, the
+   tree before the bf16 site repair).  For each attacker: the share of
+   readings under ``POOL_THRESHOLDS`` and a two-sided Mann-Whitney U test of
+   each port tree against the JAX readings, and of the two port trees
+   against each other, over the readings and over the seeds' means.  One
+   seed's readings at several steps are not independent, so the test over
+   readings overstates its confidence; the test over seed means does not.
 
 ``--vox``: the VoxCeleb-shaped R1 game against the JAX package's hard-vox run
 (``docs/hardvox_run/``: one seed of the VoxCeleb2 config, scored every 2500
@@ -95,6 +105,17 @@ LATE_STEPS = (400, 800, 1200, 2000, 2800, 3600, 4400, 4800)
 # every step the JAX CSVs of seeds 2-4 or 7-9 have, up to the study's 4999
 EVAL_STEPS = (400, 800, 1200, 2000, 2800, 3600, 4400, 4800, 4999)
 CSV_NAME = re.compile(r"(jax|ref|port)_hard_s(\d+)_eval_(\d+)\.csv$")
+
+# the pooled statistic: readings past POOL_AFTER through the port's last step
+POOL_AFTER, POOL_UNTIL = 1200, 4999
+POOL_THRESHOLDS = {"gim": 0.9, "replay": 0.99, "rnd_src": 0.6}
+POOL_GROUPS = {  # name: (implementation, CSV directories)
+    "jax": ("jax", (DOCS_DIR,)),
+    "port": ("port", (DOCS_DIR, DOCS_DIR + "/seed_spread/change")),
+    "parent": ("port", (DOCS_DIR + "/parent_747d844",
+                        DOCS_DIR + "/seed_spread/parent_747d844")),
+}
+POOL_TESTS = (("port", "jax"), ("parent", "jax"), ("port", "parent"))
 
 VOX_DOCS_DIR = "docs/hard_vox_head_to_head"
 JAX_VOX_DIR = "docs/hardvox_run"  # the JAX run's grids: eval_step<step:08d>.csv
@@ -285,6 +306,61 @@ def report(rows: dict) -> bool:
     return met
 
 
+def pooled_readings(rows: dict, impl: str, attacker: str) -> dict:
+    """{seed: [auc, ...]} of ``impl``'s readings of ``attacker`` at the steps in
+    (POOL_AFTER, POOL_UNTIL]."""
+    out = defaultdict(list)
+    for (i, step, a), seeds in sorted(rows.items()):
+        if i == impl and a == attacker and POOL_AFTER < step <= POOL_UNTIL:
+            for seed, auc in seeds.items():
+                out[seed].append(auc)
+    return dict(out)
+
+
+def pooled_statistic(groups: dict) -> list:
+    """For each attacker and group (name: (rows, impl)): the readings' count and
+    share under POOL_THRESHOLDS; then for each pair of POOL_TESTS whose groups are
+    both given, the two-sided Mann-Whitney U p-value over the readings and over
+    the seeds' means, and U / (n1 n2), the chance that a reading of the first
+    exceeds one of the second (ties count half)."""
+    from scipy.stats import mannwhitneyu
+
+    out = []
+    for a in ATTACKERS:
+        per_seed = {name: pooled_readings(rows, impl, a) for name, (rows, impl) in groups.items()}
+        flat = {name: [v for vs in seeds.values() for v in vs] for name, seeds in per_seed.items()}
+        for name, v in flat.items():
+            out.append({"attacker": a, "group": name, "n": len(v), "seeds": len(per_seed[name]),
+                        "under": int(np.sum(np.asarray(v) < POOL_THRESHOLDS[a])),
+                        "threshold": POOL_THRESHOLDS[a],
+                        "median": float(np.median(v)) if v else float("nan")})
+        for x, y in POOL_TESTS:
+            if not (flat.get(x) and flat.get(y)):
+                continue
+            test = mannwhitneyu(flat[x], flat[y], alternative="two-sided")
+            means = [[float(np.mean(vs)) for vs in per_seed[g].values()] for g in (x, y)]
+            out.append({"attacker": a, "test": f"{x} vs {y}", "p_readings": float(test.pvalue),
+                        "p_seed_means": float(mannwhitneyu(*means,
+                                                           alternative="two-sided").pvalue),
+                        "u_share": float(test.statistic) / (len(flat[x]) * len(flat[y]))})
+    return out
+
+
+def pooled_report(groups: dict) -> list:
+    """Print ``pooled_statistic`` of ``groups`` and return it."""
+    stats = pooled_statistic(groups)
+    print(f"pooled readings at steps ({POOL_AFTER}, {POOL_UNTIL}], every seed:")
+    for s in stats:
+        if "group" in s:
+            print(f"  {s['attacker']} {s['group']}: {s['under']} of {s['n']} readings "
+                  f"({s['seeds']} seeds) under {s['threshold']}, median {s['median']:.4f}")
+        else:
+            print(f"  {s['attacker']} {s['test']}: Mann-Whitney p {s['p_readings']:.4f} over "
+                  f"readings, {s['p_seed_means']:.4f} over seed means; "
+                  f"P(first > second) {s['u_share']:.3f}")
+    return stats
+
+
 def record_set(ds_root: str, csv_dir: str, name: str, make_set: str, ext: str,
                built: bool, seconds: float) -> None:
     """Print the set's digest and write it, with its command, to ``csv_dir/name``."""
@@ -319,8 +395,12 @@ def train_vox(seed: int, ds_root: str, outdir: str, n_steps: int, device: str,
     os.makedirs(outdir, exist_ok=True)
     print(" ".join(cmd[1:]), flush=True)
     t0 = time.perf_counter()
+    # one card, the card the bar was set on: with more visible the CLI trains data
+    # parallel over all of them (and refuses --device_data on)
+    env = dict(os.environ,
+               CUDA_VISIBLE_DEVICES=os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0])
     with open(os.path.join(outdir, f"seed_{seed}.log"), "w") as log:
-        proc = subprocess.run(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+        proc = subprocess.run(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
     lines = Path(outdir, f"seed_{seed}.log").read_text().splitlines()
     if proc.returncode != 0:
         print("\n".join(lines[-30:]))
@@ -463,6 +543,8 @@ def main(argv=None) -> None:
         return
     if args.report:
         report(load_aucs(DOCS_DIR, args.csv_dir))
+        pooled_report({name: (load_aucs(*dirs), impl)
+                       for name, (impl, dirs) in POOL_GROUPS.items()})
         return
 
     t0 = time.perf_counter()

@@ -5,6 +5,10 @@
   and implementation.
 * The bar (the port's mean AUC over its seeds inside the JAX seeds' [min, max]
   at each bar step, at 3 decimals) passes and fails on synthetic ``port_`` CSVs.
+* The pooled statistic (every reading past step 1200 through 4999, each
+  attacker's share under a threshold and Mann-Whitney tests) on synthetic CSVs
+  against scipy on the same readings, and the readings it pools from the
+  committed CSVs.
 * The set's digest reads pixels, not PNG bytes.
 * A rehearsal of the whole script at a tiny size: a few classes of 16 px from
   ``scripts/make_hard_glyph_ds.py``, 3 training steps with ``--device cpu``, the
@@ -96,6 +100,58 @@ def test_bar_on_synthetic_port_csvs(tmp_path, case):
     assert {c["jax_n"] for c in checks if c["step"] < 4999} == {6}
     assert {c["jax_n"] for c in checks if c["step"] == 4999} == {3}
     assert h2h.report(rows) == (case != "rnd_src_400_low")
+
+
+@pytest.mark.parametrize("shift", [0.0, 0.05])
+def test_pooled_statistic_on_synthetic_csvs(tmp_path, shift):
+    """Readings past step 1200 through 4999 pool over seeds and steps; the shares
+    under each threshold and the Mann-Whitney tests are those of the readings."""
+    from scipy.stats import mannwhitneyu
+
+    rng = np.random.default_rng(0)
+    dirs = {name: tmp_path / name for name in ("jax", "port")}
+    want = {name: {a: [] for a in h2h.ATTACKERS} for name in dirs}
+    for name, d in dirs.items():
+        d.mkdir()
+        impl = "jax" if name == "jax" else "port"
+        for seed in (2, 3, 4, 7):
+            for step in (1200, 2000, 3600, 4999, 10000):
+                aucs = {a: float(np.clip(0.93 + 0.05 * rng.random()
+                                         - (shift if name == "port" else 0.0), 0, 1))
+                        for a in h2h.ATTACKERS}
+                write_port_csv(d / f"{impl}_hard_s{seed}_eval_{step:08d}.csv", aucs)
+                if 1200 < step <= 4999:
+                    for a, v in aucs.items():
+                        want[name][a].append(v)
+    groups = {"jax": (h2h.load_aucs(str(dirs["jax"])), "jax"),
+              "port": (h2h.load_aucs(str(dirs["port"])), "port")}
+    stats = h2h.pooled_statistic(groups)
+    for a in h2h.ATTACKERS:
+        for name in dirs:
+            s = next(s for s in stats if s.get("group") == name and s["attacker"] == a)
+            v = np.asarray(want[name][a])
+            assert (s["n"], s["seeds"]) == (12, 4)
+            assert s["under"] == int((v < h2h.POOL_THRESHOLDS[a]).sum())
+        t = next(s for s in stats if s.get("test") == "port vs jax" and s["attacker"] == a)
+        test = mannwhitneyu(want["port"][a], want["jax"][a], alternative="two-sided")
+        assert t["p_readings"] == pytest.approx(test.pvalue)
+        assert t["u_share"] == pytest.approx(test.statistic / 144)
+        if shift:  # every port reading under every JAX reading
+            assert t["u_share"] == 0.0 and t["p_readings"] < 1e-4
+    # the pairs of POOL_TESTS with a group missing are left out
+    assert not any(s.get("test", "").endswith("parent") for s in stats)
+
+
+def test_pooled_statistic_of_the_committed_csvs():
+    """Every reading past 1200 of the committed CSVs enters: JAX seeds 2-4 at 2000
+    and 4999 and seeds 7-9 at 2000-4800; the port's six seeds at six steps and the
+    spread's five seeds at 2000, on either tree."""
+    stats = h2h.pooled_statistic({name: (h2h.load_aucs(*(str(REPO / d) for d in dirs)), impl)
+                                  for name, (impl, dirs) in h2h.POOL_GROUPS.items()})
+    counts = {(s["group"], s["attacker"]): (s["n"], s["seeds"]) for s in stats if "group" in s}
+    assert set(counts.values()) == {(21, 6), (41, 11)}
+    assert all(counts[("jax", a)] == (21, 6) for a in h2h.ATTACKERS)
+    assert len([s for s in stats if "test" in s]) == 3 * len(h2h.POOL_TESTS)
 
 
 def test_committed_port_csvs_cover_every_bar_reading():

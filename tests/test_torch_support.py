@@ -170,6 +170,7 @@ def test_port_imports_with_jax_blocked():
         "import optimalstrategiesagainstgenerativeattacks_torch.train.utils\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.data.voxceleb_prep\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.prepare_voxceleb_dataset\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.parallel.mesh as pm\n"
         "assert round(v.game_value_mnk(1, 5, 10, 10), 6) == 0.921131\n"
         "g.train_step(g.create_state(g.GaussianGameConfig(batch_size=8, src_dim=2), 'cpu'))\n"
         "from optimalstrategiesagainstgenerativeattacks_torch.eval.scorer import roc_auc\n"
@@ -177,6 +178,7 @@ def test_port_imports_with_jax_blocked():
         "b.build_siamese(1, 16)\n"
         "au, im = t.build_models(t.ImageGameConfig(img_size=16, style_dim=32, use_img_att=True))\n"
         "nb.SGDecoderBlock(4, 2, 3)\n"
+        "assert (pm.world_size(), pm.rank(), pm.adjust_batch_size(9, 128, 8)) == (1, 0, 8)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
