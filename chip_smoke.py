@@ -131,6 +131,19 @@ Phases (each prints its lines; the first failure exits non-zero):
               u/v and Adam moment bit-equal across ranks, then 4 bf16 steps
               finite with one step's launches a step on every rank, and
               steps/s (``dp_launches``: rank 0's bf16 steps).
+ 17. model axis: ``scripts/torch_data_parallel.py check --model_parallel 2``:
+              the ranks laid out (data, model) and the authenticator head's six
+              matrices sharded over the model axis (``parallel/tensor.py``,
+              ``min_size`` 1024); on one card two ranks over gloo (data 1 x
+              model 2), with four cards data 2 x model 2 over NCCL: (a) 2
+              flagship f32 steps (TF32 off, cuDNN deterministic, global B 128)
+              held to one process within the JAX suite's mesh tolerances;
+              (b) VoxCeleb bf16 R1 steps (global B 32 on one card, 128 on
+              four), a warm-up and 2 timed: finite, one card's launches a
+              step on every rank (18 + 18 + 9), steps/s and the model-axis
+              collectives' ms a step a rank; after
+              each, replicated tensors bit-equal on every rank and slices on
+              their data ranks (``tp_launches``: rank 0's VoxCeleb steps).
 The second-to-last line is a JSON summary of the kernels, with times per
 flagship, VoxCeleb and study step and per gim-vs-gim eval batch of each
 config (sum over sites of ms x launches), and the launches of each run
@@ -322,7 +335,7 @@ SMALL_SEEDS, SMALL_STEPS, SMALL_TIMED = 3, 10, 10
 MULTISEED_TOL = 1e-4
 MULTISEED_FLIPS = 4  # a tensor's entries whose Adam step may take the other sign (as in the
 # R1 train-step test of the CPU suite)
-N_PHASES = 16
+N_PHASES = 17
 
 # NVIDIA H100 SXM data sheet: HBM rate, dense bf16 tensor-core and f32 CUDA-core peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -2711,11 +2724,10 @@ def run_hard_study(counters, set_proc: subprocess.Popen) -> dict:
     return launches
 
 
-# ---- phase 16: data parallel
+# ---- phases 16 and 17: data parallel, the model axis
 
-def run_data_parallel(seed: int) -> dict:
-    """Phase 16 (``scripts/torch_data_parallel.py check``); returns rank 0's launches
-    over its bf16 steps."""
+def data_parallel_script():
+    """``scripts/torch_data_parallel.py`` as a module."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
@@ -2723,6 +2735,13 @@ def run_data_parallel(seed: int) -> dict:
     spec = importlib.util.spec_from_file_location("torch_data_parallel", path)
     dp = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(dp)
+    return dp
+
+
+def run_data_parallel(seed: int) -> dict:
+    """Phase 16 (``scripts/torch_data_parallel.py check``); returns rank 0's launches
+    over its bf16 steps."""
+    dp = data_parallel_script()
     try:
         summary = dp.check(seed)
     except SystemExit as e:
@@ -2731,6 +2750,20 @@ def run_data_parallel(seed: int) -> dict:
     if not summary["ok"]:
         fail("data parallel: " + "; ".join(summary["problems"]))
     return summary["launches"][0]
+
+
+def run_model_axis(seed: int) -> dict:
+    """Phase 17 (``scripts/torch_data_parallel.py check --model_parallel 2``); returns
+    rank 0's launches over its VoxCeleb steps."""
+    dp = data_parallel_script()
+    try:
+        summary = dp.tp_check(seed, 2)
+    except SystemExit as e:
+        fail(f"model axis: {e}")
+    dp.print_tp_check(summary)
+    if not summary["ok"]:
+        fail("model axis: " + "; ".join(summary["problems"]))
+    return {k: v for k, v in summary["launches"][0].items() if k != "adain_nhwc_copy"}
 
 
 def main() -> None:
@@ -2882,6 +2915,13 @@ def main() -> None:
           f"tolerances) and against each other (bit for bit)", flush=True)
     for name, n in run_data_parallel(args.seed).items():
         results[name]["dp_launches"] = n
+
+    print(f"[17/{N_PHASES}] model axis: the head's six matrices sharded over two ranks (one "
+          f"card: gloo, data 1 x model 2; four cards: NCCL, data 2 x model 2); flagship f32 "
+          f"against one process (the JAX suite's mesh tolerances), VoxCeleb bf16 R1 steps, "
+          f"ranks bit-equal", flush=True)
+    for name, n in run_model_axis(args.seed).items():
+        results[name]["tp_launches"] = n
 
     print(smi_line())
     print(json.dumps({"kernels": list(results.values())}))

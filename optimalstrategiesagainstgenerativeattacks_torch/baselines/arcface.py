@@ -12,8 +12,10 @@ Flax (``baselines/layers.py``); the backbone's last map is flattened in the
 JAX package's NHWC order before ``out_dense``; dropout draws from the
 generator the caller passes.  The head's ``weight`` is [classes, emb], the
 transpose of the JAX package's kernel, as every dense weight here is.
-The JAX package's ``bn_axis_name`` (cross-replica statistics) is not ported:
-one device trains a baseline.
+``bn_axis_name="data"`` (the JAX package's cross-replica statistics) syncs
+every BatchNorm's statistics over the mesh's data axis
+(``baselines/layers.py``); the default, None, takes each rank's own.  No
+trainer passes it, in the JAX package neither.
 """
 
 from __future__ import annotations
@@ -56,18 +58,19 @@ class SEModule(nn.Module):
 class BottleneckIR(nn.Module):
     """IR residual unit (``bottleneck_IR:41-58``); optional SE gate."""
 
-    def __init__(self, in_channels: int, depth: int, stride: int, use_se: bool = False):
+    def __init__(self, in_channels: int, depth: int, stride: int, use_se: bool = False,
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
         self.stride = stride
         self.project = in_channels != depth
         if self.project:
             self.shortcut_conv = Conv(in_channels, depth, 1, stride=stride, bias=False)
-            self.shortcut_bn = BatchNorm(depth)
-        self.bn1 = BatchNorm(in_channels)
+            self.shortcut_bn = BatchNorm(depth, axis_name=bn_axis_name)
+        self.bn1 = BatchNorm(in_channels, axis_name=bn_axis_name)
         self.conv1 = Conv(in_channels, depth, 3, padding=1, bias=False)
         self.prelu = PReLU(depth)
         self.conv2 = Conv(depth, depth, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = BatchNorm(depth)
+        self.bn2 = BatchNorm(depth, axis_name=bn_axis_name)
         self.se = SEModule(depth) if use_se else None
 
     def forward(self, x):
@@ -99,7 +102,8 @@ class Backbone(nn.Module):
     """SE-IR ResNet embedding backbone (``Backbone:120-164``)."""
 
     def __init__(self, num_layers: int = 50, drop_ratio: float = 0.6, mode: str = "ir_se",
-                 img_size: int = 64, img_channels: int = 3, emb_dim: int = 512):
+                 img_size: int = 64, img_channels: int = 3, emb_dim: int = 512,
+                 bn_axis_name: Optional[str] = None):
         super().__init__()
         if mode not in ("ir", "ir_se"):
             raise ValueError("mode should be ir or ir_se")
@@ -111,19 +115,20 @@ class Backbone(nn.Module):
             raise ValueError("img_size must be 32 or 64")
         self.drop_ratio = drop_ratio
         self.input_conv = Conv(img_channels, 64, 3, padding=1, bias=False)
-        self.input_bn = BatchNorm(64)
+        self.input_bn = BatchNorm(64, axis_name=bn_axis_name)
         self.input_prelu = PReLU(64)
         in_ch = 64
         self.units = []
         for bi, block in enumerate(get_blocks(num_layers)):
             for ui, (depth, stride) in enumerate(block):
                 name = f"block{bi}_unit{ui}"
-                setattr(self, name, BottleneckIR(in_ch, depth, stride, use_se=mode == "ir_se"))
+                setattr(self, name, BottleneckIR(in_ch, depth, stride, use_se=mode == "ir_se",
+                                                 bn_axis_name=bn_axis_name))
                 self.units.append(name)
                 in_ch = depth
-        self.out_bn = BatchNorm(512)
+        self.out_bn = BatchNorm(512, axis_name=bn_axis_name)
         self.out_dense = Dense(512 * last_img_size * last_img_size, emb_dim)
-        self.out_bn1d = BatchNorm(emb_dim)
+        self.out_bn1d = BatchNorm(emb_dim, axis_name=bn_axis_name)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         h = self.input_prelu(self.input_bn(self.input_conv(to_nchw(x))))

@@ -7,6 +7,11 @@
     torch's ``BatchNorm`` takes ``momentum=0.1`` for the same update but
     stores the unbiased variance, off by B/(B-1).  Eval reads the running
     statistics.  The channel axis is 1 (NCHW, or [B, features]).
+    ``axis_name="data"`` (Flax's ``axis_name``): the stacked [mean, mean of
+    squares] are averaged over the mesh's data axis before the variance
+    (``parallel/tensor.py:pmean``, a mean of the ranks' means as
+    ``lax.pmean`` takes it, its backward the mean of the cotangents), and the
+    running statistics take the synced values.
   * ``PReLU``: per-channel slope, 0.25 at init, ``where(x >= 0, x, a * x)``.
   * ``lecun_normal_``: Flax's default kernel init (truncated normal, std
     sqrt(1 / fan_in) / .8796, cut at 2 std), drawn from the generator that
@@ -20,6 +25,8 @@ import math
 
 import torch
 from torch import nn
+
+from optimalstrategiesagainstgenerativeattacks_torch.parallel.tensor import pmean
 
 
 @torch.no_grad()
@@ -36,7 +43,8 @@ def channel_view(t: torch.Tensor, ndim: int) -> torch.Tensor:
 class BatchNorm(nn.Module):
     """Flax ``nn.BatchNorm`` over axis 1 (see the module docstring)."""
 
-    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
+    def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5,
+                 axis_name: str | None = None):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -44,13 +52,17 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         self.momentum = momentum
         self.eps = eps
+        self.axis_name = axis_name
 
     def forward(self, x):
         if self.training:
             axes = [0, *range(2, x.ndim)]
             xf = x.float()
             mean = xf.mean(axes)
-            var = torch.clamp(xf.square().mean(axes) - mean.square(), min=0.0)
+            mean2 = xf.square().mean(axes)
+            if self.axis_name is not None:
+                mean, mean2 = pmean(torch.stack([mean, mean2]), self.axis_name).unbind()
+            var = torch.clamp(mean2 - mean.square(), min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(self.momentum * self.running_mean
                                         + (1.0 - self.momentum) * mean)

@@ -23,6 +23,10 @@ knows the consumer rounds it (``models/image.py``).
 ``tests/test_torch_bf16_sites.py`` holds each site to XLA's compile;
 ``scripts/torch_bf16_sites.py`` prints the readings.
 
+``Dense``, ``Conv`` and ``SNConv`` can run sharded over the mesh's model
+axis (``parallel/tensor.py``: ``model_axis`` set, the weight holding this
+rank's output rows); unset, the forward is the one above.
+
 The blocks run in the plain torch order (conv then pool, upsample then conv,
 a channel concat for two-part inputs).  The reference folds some of these
 into single convs (exact algebra: ``nn/blocks.py`` ``_fold_kernel_for_*``,
@@ -61,10 +65,14 @@ from optimalstrategiesagainstgenerativeattacks_torch.ops.spectral import (
     sigma,
     weight_matrix,
 )
+from optimalstrategiesagainstgenerativeattacks_torch.parallel import tensor
+from optimalstrategiesagainstgenerativeattacks_torch.parallel.mesh import Axis
 
 
 class Dense(nn.Module):
     """Linear layer, weight [out, in]; ``init`` is "torch" or "kaiming" (a=0.2, zero bias)."""
+
+    model_axis: Optional[Axis] = None  # set: the weight holds this rank's output rows
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: Optional[torch.dtype] = None, init: str = "torch"):
@@ -81,14 +89,19 @@ class Dense(nn.Module):
             torch_default_(self.weight, self.bias, generator)
 
     def forward(self, x):
-        if self.dtype is None:
-            return F.linear(x, self.weight, self.bias)
-        dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        w, b, axis = self.weight, self.bias, self.model_axis
+        if axis is not None:
+            x, b = tensor.copy_to_model(x, axis), tensor.split_to_model(b, axis)
+        if self.dtype is not None:
+            x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
+        out = F.linear(x, w, b)
+        return out if axis is None else tensor.gather_from_model(out, axis, -1)
 
 
 class Conv(nn.Module):
     """Plain conv (no spectral norm), stride 1; ``init`` as ``Dense``'s."""
+
+    model_axis: Optional[Axis] = None  # set: the weight holds this rank's output channels
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  padding: int = 0, dtype: Optional[torch.dtype] = None, init: str = "torch"):
@@ -108,10 +121,13 @@ class Conv(nn.Module):
             torch_default_(self.weight, self.bias, generator)
 
     def forward(self, x):
-        w, b = self.weight, self.bias
+        w, b, axis = self.weight, self.bias, self.model_axis
+        if axis is not None:
+            x, b = tensor.copy_to_model(x, axis), tensor.split_to_model(b, axis)
         if self.dtype is not None:
             x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
-        return conv2d(x, w, b, self.padding)
+        out = conv2d(x, w, b, self.padding)
+        return out if axis is None else tensor.gather_from_model(out, axis, 1)
 
 
 class SNConv(nn.Module):
@@ -124,7 +140,13 @@ class SNConv(nn.Module):
     ``f32_out``: for a conv whose output a norm reads.  The conv rounds to
     ``dtype`` and the bias (rounded to ``dtype``) is added in f32, so the norm
     reads the sum unrounded, as XLA compiles the JAX conv followed by a norm.
+
+    Sharded (``model_axis``): u and v stay whole, sigma and the power
+    iteration run over the row-sharded W (``ops/spectral.py``), and the f32
+    sum of ``f32_out`` is what is gathered.
     """
+
+    model_axis: Optional[Axis] = None  # set: the weight holds this rank's output channels
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  padding: int = 0, dtype: Optional[torch.dtype] = None, eps: float = 1e-12,
@@ -149,16 +171,21 @@ class SNConv(nn.Module):
         self.v.copy_(l2_normalize(weight_matrix(self.weight).t() @ self.u, self.eps))
 
     def power_iterate_(self) -> None:
-        power_iterate_(self.weight, self.u, self.v, self.eps)
+        power_iterate_(self.weight, self.u, self.v, self.eps, self.model_axis)
 
     def forward(self, x):
-        w = self.weight / sigma(self.weight, self.u, self.v)
+        axis = self.model_axis
+        w = self.weight / sigma(self.weight, self.u, self.v, axis)
         b = self.bias
+        if axis is not None:
+            x, b = tensor.copy_to_model(x, axis), tensor.split_to_model(b, axis)
         if self.dtype is not None:
             x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
             if self.f32_out:
-                return conv2d(x, w, None, self.padding).float() + b.float()[:, None, None]
-        return conv2d(x, w, b, self.padding)
+                out = conv2d(x, w, None, self.padding).float() + b.float()[:, None, None]
+                return out if axis is None else tensor.gather_from_model(out, axis, 1)
+        out = conv2d(x, w, b, self.padding)
+        return out if axis is None else tensor.gather_from_model(out, axis, 1)
 
 
 def conv2d(x, w, b, padding: int):

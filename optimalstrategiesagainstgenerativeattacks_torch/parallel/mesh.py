@@ -1,22 +1,37 @@
-"""Data-parallel training across cards: one process a card, gradients all-reduced.
+"""Training across cards: one process a card, a ``(data, model)`` layout of the ranks.
 
-Counterpart of the data axis of
-``optimalstrategiesagainstgenerativeattacks_tpu/parallel/mesh.py``.  The JAX
-package shards each batch over a ``('data', 'model')`` mesh of every visible
-device and lets XLA's SPMD partitioner insert the gradient and metric means.
-The port runs one process a card under ``torch.distributed`` (NCCL on the
-card, gloo on the CPU) and takes the same means itself:
+Counterpart of ``optimalstrategiesagainstgenerativeattacks_tpu/parallel/mesh.py``.
+The JAX package shards each batch over a ``('data', 'model')`` mesh of every
+visible device and lets XLA's SPMD partitioner insert the gradient and metric
+means and, for matrices ``param_shardings`` splits over the model axis, the
+gathers.  The port runs one process a card under ``torch.distributed`` (NCCL
+on the card, gloo on the CPU) and takes the same steps itself.
+
+``create_mesh(model_parallel)`` lays the ranks out as the JAX package's
+``np.array(devices).reshape(n // mp, mp)``: rank r has data index r // mp and
+model index r % mp; the ranks of one model group are a run of consecutive
+ranks, those of one data group a stride.  Without a call the layout is the
+data axis over the whole world.  Everything below works on the data axis:
 
   * every rank holds the whole global batch's schedule and assembles, or
-    draws, only its contiguous slice (``shard_bounds``, ``shard_batch``,
-    ``randn_slice``), so the ranks' slices concatenate to what one process
-    gets at the global batch;
+    draws, only its data index's contiguous slice (``shard_bounds``,
+    ``shard_batch``, ``randn_slice``), so the slices concatenate to what one
+    process gets at the global batch, and the ranks of a model group take the
+    same rows and the same noise;
   * each player's gradients are flattened into one buffer, all-reduced and
-    divided by the world size before its Adam step (``all_reduce_grads_``):
-    local means over equal shards average to the global mean, and every rank
-    takes the same step from the same reduced gradient, so the parameters and
-    the spectral u/v stay equal across ranks;
+    divided by the data axis's size before its Adam step
+    (``all_reduce_grads_``): local means over equal shards average to the
+    global mean, and every rank takes the same step from the same reduced
+    gradient, so the parameters and the spectral u/v stay equal across ranks;
   * metrics are means of equal shards' means (``all_reduce_mean``).
+
+The model axis itself (the sharded layers, their collectives, the state
+across the layout) is ``parallel/tensor.py``; ``param_shardings`` here is the
+JAX package's rule over the port's parameters.
+
+The layout is process state, as the process group it is built on is: the
+steps read it where they shard a batch or draw noise, so no caller threads a
+mesh through them (the JAX package passes one to ``make_train_step``).
 
 The players are not wrapped in ``DistributedDataParallel``: the steps take
 their gradients with ``torch.autograd.grad``, R1 differentiates twice, and
@@ -36,6 +51,7 @@ function here is the identity.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import os
 import socket
@@ -46,6 +62,7 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
 _PKG_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -106,8 +123,111 @@ def init_process(device, backend: Optional[str] = None,
 
 
 def shutdown() -> None:
+    global _MESH
+    _MESH = None
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One axis of the layout: this rank's index along it, the axis's size, and
+    the process group of the ranks that differ only in this index (None: the
+    default group, the whole world)."""
+
+    rank: int = 0
+    size: int = 1
+    group: Optional[object] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The ``(data, model)`` layout of the ranks (``create_mesh``)."""
+
+    data: Axis
+    model: Axis
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data.size, "model": self.model.size}
+
+
+_MESH: Optional[Mesh] = None
+
+
+def create_mesh(model_parallel: int = 1) -> Mesh:
+    """Lay the ranks of the process group out as ``(world // model_parallel,
+    model_parallel)``, the JAX package's ``create_mesh`` order, and make it the
+    layout every function here and in ``parallel/tensor.py`` reads.
+
+    With ``model_parallel`` > 1 every rank builds every group with
+    ``dist.new_group``, in the same order: the model groups (runs of
+    consecutive ranks), then the data groups (strides).  With 1 the data axis
+    is the default group, so every collective is the one data parallel alone
+    makes."""
+    global _MESH
+    world, r = world_size(), rank()
+    mp = int(model_parallel)
+    if mp < 1 or world % mp:
+        raise ValueError(f"{world} ranks not divisible by model_parallel={mp}")
+    if mp == 1:
+        mesh = Mesh(Axis(r, world, None), Axis())
+    else:
+        groups = {}
+        for d in range(world // mp):
+            ranks = list(range(d * mp, (d + 1) * mp))
+            group = dist.new_group(ranks)
+            if r in ranks:
+                groups["model"] = group
+        for m in range(mp):
+            ranks = list(range(m, world, mp))
+            group = dist.new_group(ranks)
+            if r in ranks:
+                groups["data"] = group
+        mesh = Mesh(Axis(r // mp, world // mp, groups["data"]),
+                    Axis(r % mp, mp, groups["model"]))
+    _MESH = mesh
+    return mesh
+
+
+def current_mesh() -> Mesh:
+    """The layout of ``create_mesh``; without one, the data axis over the world."""
+    return _MESH if _MESH is not None else Mesh(Axis(rank(), world_size(), None), Axis())
+
+
+def data_axis() -> Axis:
+    return current_mesh().data
+
+
+def model_axis() -> Axis:
+    return current_mesh().model
+
+
+def param_shardings(module: nn.Module, mesh: Mesh,
+                    min_size: int = 1024) -> Dict[str, Optional[int]]:
+    """Each parameter's name -> the dim split over ``mesh``'s model axis, or None
+    (replicated): the JAX package's ``param_shardings`` over the port's names.
+
+    JAX splits the trailing axis of a parameter of ndim >= 2 when it is at
+    least ``min_size`` and divides by the model axis's size.  That axis is a
+    Dense or conv kernel's output features or channels, dim 0 of the port's
+    [out, in] and [out, in, kh, kw] weights, and the layers with a sharded
+    forward (those with a ``model_axis`` attribute: ``nn/blocks.py`` Dense,
+    Conv, SNConv) are every such kernel of the image game.  Biases are 1-D
+    here and stay whole (the JAX tree stacks the encoder pair's and the
+    AdaIN res blocks' into 2-D leaves, which its rule may split).
+    """
+    mp = mesh.model.size
+    out: Dict[str, Optional[int]] = {name: None for name, _ in module.named_parameters()}
+    if mp == 1:
+        return out
+    for prefix, m in module.named_modules():
+        if not hasattr(m, "model_axis"):
+            continue
+        w = m.weight
+        if w.ndim >= 2 and w.shape[0] >= min_size and w.shape[0] % mp == 0:
+            out[f"{prefix}.weight" if prefix else "weight"] = 0
+    return out
 
 
 @contextlib.contextmanager
@@ -199,10 +319,12 @@ def barrier() -> None:
 
 
 def shard_bounds(n: int, r: Optional[int] = None, world: Optional[int] = None) -> Tuple[int, int]:
-    """[lo, hi) of rank ``r``'s contiguous slice of a global batch of ``n``
-    (this process's rank and world by default); ``n`` must divide evenly."""
-    r = rank() if r is None else r
-    world = world_size() if world is None else world
+    """[lo, hi) of data index ``r``'s contiguous slice of a global batch of ``n``
+    over ``world`` shards (this rank's data index and the data axis's size by
+    default); ``n`` must divide evenly."""
+    data = data_axis()
+    r = data.rank if r is None else r
+    world = data.size if world is None else world
     if n % world:
         raise ValueError(f"a batch of {n} does not divide over {world} ranks")
     b = n // world
@@ -210,9 +332,9 @@ def shard_bounds(n: int, r: Optional[int] = None, world: Optional[int] = None) -
 
 
 def shard_batch(batch):
-    """This rank's slice of a global batch: a tensor or array, or a dict of them,
-    sliced on the leading axis."""
-    if world_size() == 1:
+    """This rank's slice of a global batch (its data index's): a tensor or array,
+    or a dict of them, sliced on the leading axis."""
+    if data_axis().size == 1:
         return batch
     if isinstance(batch, dict):
         lo, hi = shard_bounds(len(next(iter(batch.values()))))
@@ -224,10 +346,11 @@ def shard_batch(batch):
 def randn_slice(shape: Sequence[int], generator: Optional[torch.Generator], device,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """This rank's slice [shape[0], ...] of one draw of the global
-    [world * shape[0], ...] from ``generator``: every rank draws the whole, so
-    the generators stay in step and the slices concatenate to one process's
-    draw.  Without a group, the plain ``torch.randn(shape)``."""
-    world = world_size()
+    [data size * shape[0], ...] from ``generator``, at its data index: every
+    rank draws the whole, so the generators stay in step, the slices
+    concatenate to one process's draw, and a model group's ranks hold the
+    same rows.  Without a group, the plain ``torch.randn(shape)``."""
+    world = data_axis().size
     if world == 1:
         return torch.randn(tuple(shape), generator=generator, device=device, dtype=dtype)
     full = torch.randn((world * shape[0], *shape[1:]), generator=generator, device=device,
@@ -236,38 +359,58 @@ def randn_slice(shape: Sequence[int], generator: Optional[torch.Generator], devi
     return full[lo:hi]
 
 
-def all_reduce_grads_(params: Sequence[torch.Tensor]) -> None:
-    """Replace each parameter's ``.grad`` by its mean over the ranks: the
+def all_reduce_grads_(params: Sequence[torch.Tensor], sharded: Sequence[torch.Tensor] = ()) -> None:
+    """Replace each parameter's ``.grad`` by its mean over the data axis: the
     gradients of a dtype flattened into one buffer, one ``all_reduce``, divided
-    by the world size; the new ``.grad``s are views of the buffer.  Every rank
-    gets the same bits (the reduction is computed once and broadcast)."""
+    by the axis's size; the new ``.grad``s are views of the buffer.  Every rank
+    gets the same bits (the reduction is computed once and broadcast).
+
+    With a model axis, ``sharded`` are the parameters that hold this rank's
+    slice (``parallel/tensor.py``): they are reduced over the data group.  The
+    replicated ones are reduced over the whole world and divided by its size.
+    Their copies on a model group's ranks are equal up to the card's
+    nondeterministic kernels (cuDNN's backward algorithms), so this is the
+    data axis's mean, rounded in another order, and it keeps the copies equal
+    bit for bit whatever the kernels did."""
     world = world_size()
     if world == 1:
         return
+    model = model_axis()
+    if model.size == 1:
+        _reduce_mean_(params, None, world)
+        return
+    data = data_axis()
+    ids = {id(p) for p in sharded}
+    if data.size > 1:
+        _reduce_mean_([p for p in params if id(p) in ids], data.group, data.size)
+    _reduce_mean_([p for p in params if id(p) not in ids], None, world)
+
+
+def _reduce_mean_(params: Sequence[torch.Tensor], process_group, size: int) -> None:
     by_dtype: Dict[torch.dtype, list] = {}
     for p in params:
         by_dtype.setdefault(p.grad.dtype, []).append(p)
     for group in by_dtype.values():
         flat = torch.cat([p.grad.reshape(-1) for p in group])
-        dist.all_reduce(flat)
-        flat.div_(world)
+        dist.all_reduce(flat, group=process_group)
+        flat.div_(size)
         for p, g in zip(group, flat.split([p.numel() for p in group])):
             p.grad = g.view_as(p)
 
 
 def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of ``x`` over the ranks (``x`` itself without a group)."""
-    world = world_size()
-    if world == 1:
+    """The mean of ``x`` over the data axis (``x`` itself without one)."""
+    data = data_axis()
+    if data.size == 1:
         return x
     x = x.clone()
-    dist.all_reduce(x)
-    return x / world
+    dist.all_reduce(x, group=data.group)
+    return x / data.size
 
 
 def all_reduce_mean_dict(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Means over the ranks of a dict of 0-dim tensors, in one ``all_reduce``."""
-    if world_size() == 1:
+    """Means over the data axis of a dict of 0-dim tensors, in one ``all_reduce``."""
+    if data_axis().size == 1:
         return values
     stacked = all_reduce_mean(torch.stack([v.float() for v in values.values()]))
     return dict(zip(values, stacked.unbind()))

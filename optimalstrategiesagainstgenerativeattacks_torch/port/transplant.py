@@ -34,6 +34,8 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from optimalstrategiesagainstgenerativeattacks_torch.parallel.tensor import local_state_dict
+
 _PAIR = ("src", "env")
 _DENSE = re.compile(r"Dense_(\d+)$")
 _RES = re.compile(r"res_(\d+)$")
@@ -89,9 +91,13 @@ def flax_to_state_dict(params: Mapping, state: Mapping) -> Dict[str, np.ndarray]
 
 
 def load_flax(module: torch.nn.Module, params: Mapping, state: Mapping) -> None:
-    """Copy the reference's trees into ``module`` (strict: every key must match)."""
+    """Copy the reference's trees into ``module`` (strict: every key must match).
+
+    A module sharded over the model axis (``parallel/tensor.py:shard_state_``)
+    takes each sharded weight's rows of this rank, so the JAX ``params`` and
+    ``spectral`` go straight to the sharded state."""
     sd = {k: torch.tensor(v) for k, v in flax_to_state_dict(params, state).items()}
-    module.load_state_dict(sd, strict=True)
+    module.load_state_dict(local_state_dict(module, sd), strict=True)
 
 
 def _set(tree: dict, path: Tuple[str, ...], value) -> None:

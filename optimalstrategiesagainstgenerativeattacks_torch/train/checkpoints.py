@@ -11,6 +11,9 @@ MultiStepLR schedulers where the state has them (the image game's; the
 Gaussian game's has none) and the state of its generator: everything a
 resumed run needs to take the same steps as one never interrupted.  In a
 data-parallel run (``parallel/mesh.py``) only rank 0 writes; every rank loads.
+From a state sharded over the model axis (``parallel/tensor.py``) every rank
+gathers the whole arrays first and rank 0 writes them, so the file is the
+one a single process writes; it loads into a whole state.
 """
 
 from __future__ import annotations
@@ -22,6 +25,10 @@ from typing import Tuple
 import torch
 
 from optimalstrategiesagainstgenerativeattacks_torch.parallel.mesh import is_main
+from optimalstrategiesagainstgenerativeattacks_torch.parallel.tensor import (
+    gather_state,
+    sharded_weights,
+)
 
 CKPT_PREFIX = "model_"
 _PARTS = ("au", "im", "opt_au", "opt_im", "sched_au", "sched_im")
@@ -54,11 +61,15 @@ class CheckpointIO:
         return os.path.join(self.checkpoint_dir, f"{CKPT_PREFIX}{step:08d}")
 
     def save(self, state, step: int, last_epoch: int = 1) -> str:
-        """Write the snapshot of ``step`` (on rank 0 only); returns its path."""
+        """Write the snapshot of ``step`` (on rank 0 only; every rank calls it); returns
+        its path."""
         path = self.path_for_step(step)
+        sharded = sharded_weights(state.au) or sharded_weights(state.im)
+        whole = gather_state(state) if sharded else {}  # a collective
         if not is_main():
             return path
         payload = {name: getattr(state, name).state_dict() for name in _parts(state)}
+        payload.update(whole)
         payload.update(global_step=int(step), last_epoch=int(last_epoch),
                        generator=state.generator.get_state())
         tmp = path + ".tmp"

@@ -37,7 +37,13 @@ Data parallel (``parallel/mesh.py``, the JAX step's ``mesh`` argument): in a
 process group each rank takes its shard of every batch and its slice of the
 global noise draw, the gradients are averaged over the ranks before each Adam
 step, and the metrics, diagnostics and eval sums are means over the ranks, so
-k ranks take the step one process takes on the global batch.
+k ranks take the step one process takes on the global batch.  With a model
+axis (``create_mesh(model_parallel)``, then ``parallel/tensor.py``'s
+``shard_state_``) the shards and slices are the data index's, so a model
+group's ranks take the same rows and noise; the sharded layers gather their
+outputs, the rest of the step runs whole on each of them, and the means are
+over the data axis: the step is the one ``make_train_step(..., mesh)`` takes
+on the JAX package's ``param_shardings``.
 """
 
 from __future__ import annotations
@@ -380,8 +386,9 @@ def run_eval(state: GameState, ds, logger, batch_size: int, key: int) -> dict:
     comes from ``noise_generator(device, key, state.step, i)``.  In a process
     group each rank evaluates its shard of every batch and the sums are
     averaged over the ranks."""
+    data = mesh.data_axis()
     loader = EpisodicBatchLoader(ds, batch_size=batch_size, shuffle=False, drop_last=True,
-                                 shard=(mesh.rank(), mesh.world_size()))
+                                 shard=(data.rank, data.size))
     sums, count = None, 0
     for i, batch in enumerate(loader):
         m = eval_step(state, batch, noise_generator(state.device, key, state.step, i))
@@ -434,9 +441,10 @@ def train_loader(cfg: ImageGameConfig, train_ds, batch_size: int, device):
         print(f"host loader, prefetch depth {cfg.prefetch_depth}"
               + (f", each of {world} ranks assembling {batch_size // world} of {batch_size}"
                  if world > 1 else ""))
+    data = mesh.data_axis()
     return EpisodicBatchLoader(train_ds, batch_size=batch_size, shuffle=True, drop_last=True,
                                num_workers=cfg.num_workers, seed=cfg.seed,
-                               shard=(mesh.rank(), world))
+                               shard=(data.rank, data.size))
 
 
 def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress: bool = True,

@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import torch
 
 from optimalstrategiesagainstgenerativeattacks_torch.parallel.mesh import all_reduce_grads_
+from optimalstrategiesagainstgenerativeattacks_torch.parallel.tensor import sharded_params
 from optimalstrategiesagainstgenerativeattacks_torch.utils.config import (
     GaussianGameConfig,
     ImageGameConfig,
@@ -59,10 +60,12 @@ def adam_step(module: torch.nn.Module, opt: torch.optim.Optimizer, loss: torch.T
     """One optimizer step of ``module`` on ``loss``; the gradient is taken with
     ``torch.autograd.grad`` over the module's parameters only, so a frozen
     player in the same graph keeps its ``.grad`` untouched.  In a process group
-    the gradients are averaged over the ranks first (``all_reduce_grads_``)."""
+    the gradients are averaged over the data axis first (``all_reduce_grads_``);
+    a weight sharded over the model axis (``parallel/tensor.py``) steps on this
+    rank's rows, with its rows' gradient."""
     params = list(module.parameters())
     for p, g in zip(params, torch.autograd.grad(loss, params)):
         p.grad = g
-    all_reduce_grads_(params)
+    all_reduce_grads_(params, sharded_params(module))
     opt.step()
     opt.zero_grad(set_to_none=True)

@@ -171,6 +171,7 @@ def test_port_imports_with_jax_blocked():
         "import optimalstrategiesagainstgenerativeattacks_torch.data.voxceleb_prep\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.prepare_voxceleb_dataset\n"
         "import optimalstrategiesagainstgenerativeattacks_torch.parallel.mesh as pm\n"
+        "import optimalstrategiesagainstgenerativeattacks_torch.parallel.tensor\n"
         "assert round(v.game_value_mnk(1, 5, 10, 10), 6) == 0.921131\n"
         "g.train_step(g.create_state(g.GaussianGameConfig(batch_size=8, src_dim=2), 'cpu'))\n"
         "from optimalstrategiesagainstgenerativeattacks_torch.eval.scorer import roc_auc\n"
