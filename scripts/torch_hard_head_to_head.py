@@ -7,8 +7,10 @@ hold the port's AUCs to the JAX package's recorded ones.
         [--csv_dir docs/hard_head_to_head] [--n_steps 4999] [--save_every 400]
         [--eval_steps 400 800 ...]
     python scripts/torch_hard_head_to_head.py --report   # the table and the bar only
-    python scripts/torch_hard_head_to_head.py --vox [--seeds 1] [--n_steps 2500] ...
+    python scripts/torch_hard_head_to_head.py --vox [--seeds 1] [--n_steps 2500] [--cards N] ...
     python scripts/torch_hard_head_to_head.py --vox --report
+    python scripts/torch_hard_head_to_head.py --flagship [--seeds 1] [--n_steps 10000] [--cards N] ...
+    python scripts/torch_hard_head_to_head.py --flagship --report
 
 1. The set: ``scripts/make_hard_glyph_ds.py`` with its own defaults (28
    alphabets x 20 characters, 3 alphabets for val, 20 images a class, 32 px,
@@ -69,6 +71,34 @@ steps with ``scripts/eval_hardvox_grid.sh``).
 4. The table of the JAX run's CSVs and the port's, then the bar at step 2500:
    gim and replay AUC at least the JAX run's lowest over its six checkpoints,
    rnd_src AUC inside its [min, max] over them.
+
+``--flagship``: the flagship game against the JAX package's 100k-step run of its
+CLI's defaults on the hard glyph set (``docs/flag100k_hard/``, a grid every 5000
+steps).
+1. The set: the glyph study's (``scripts/make_hard_glyph_ds.py`` at its defaults);
+   its digest goes into ``<csv_dir>/port_flag_set.json`` and is compared with
+   ``docs/hard_head_to_head/port_hard_set.json``.
+2. Training: the port's ``train_gim_on_imgs`` CLI at its own defaults, which are
+   the JAX run's flags (Omniglot, 32 px, style 512, B=128, bf16, au / im / noise
+   lr 1e-6 / 1e-5 / 1e-7, 100 episodes a class an epoch, no milestones), a
+   checkpoint every ``--save_every`` (5000) steps, as many epochs as reach
+   ``--n_steps`` (10000).
+3. Eval: the port's eval CLI on the val split, 32 px, m1 n5 k5 (the columns of
+   the JAX run's CSVs), into ``<csv_dir>/port_flag_s<seed>_eval_<step:08d>.csv``.
+4. The bar at steps 5000 and 10000: each attacker's AUC inside the JAX run's
+   reading +- delta, delta the largest range over seeds of the JAX glyph study's
+   readings at steps 4999 and 10000 (gim 0.112, replay 0.050, rnd_src 0.188).
+
+Both modes: ``--cards N`` trains on N cards (``train_command``): 1, the default,
+pins the CLI to one card; more leave N visible, and the CLI trains data parallel
+at the same global batch with the host loader (``--device_data off``).  A run
+with more than one card names its files ``..._s<seed>_cards<N>_...``.  Each
+checkpoint is scored as it lands, on one card, while the run goes on, so that a
+run stopped by ``--deadline`` keeps the readings it reached.  The run's steps/s
+come from the write times of the image grids the CLI writes every 500 steps;
+with the cards and the card's name they go into the copied ``args.json`` under
+``study_run``.  ``--min_steps_per_sec`` stops a run that trains slower than that
+over its first 500 steps.
 """
 
 from __future__ import annotations
@@ -81,10 +111,12 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
 from collections import defaultdict
+from typing import NamedTuple
 from pathlib import Path
 
 import numpy as np
@@ -120,15 +152,24 @@ POOL_TESTS = (("port", "jax"), ("parent", "jax"), ("port", "parent"))
 VOX_DOCS_DIR = "docs/hard_vox_head_to_head"
 JAX_VOX_DIR = "docs/hardvox_run"  # the JAX run's grids: eval_step<step:08d>.csv
 MAKE_VOX_SET = "scripts/make_hard_vox_ds.py"
-VOX_TRAIN_MODULE = "optimalstrategiesagainstgenerativeattacks_torch.train_gim_on_imgs"
+IMG_TRAIN_MODULE = "optimalstrategiesagainstgenerativeattacks_torch.train_gim_on_imgs"
 EVAL_MODULE = "optimalstrategiesagainstgenerativeattacks_torch.eval_gim_on_authentication"
 # the VoxCeleb2 config of the JAX CLI's docstring (train_gim_on_imgs.py:7-8)
-VOX_CONFIG = ["--dataset_type", "voxceleb2", "--img_channels", "3", "--au_lr", "1e-4",
-              "--im_lr", "1e-4", "--env_noise_mapping_lr", "1e-6", "--reg_param", "10"]
+VOX_CONFIG = ("--dataset_type", "voxceleb2", "--img_channels", "3", "--au_lr", "1e-4",
+              "--im_lr", "1e-4", "--env_noise_mapping_lr", "1e-6", "--reg_param", "10")
 VOX_EXAMPLES_PER_CLASS = 20  # 93 steps an epoch, as the JAX run's 14879 steps in 160 epochs
 VOX_BAR_STEP = 2500
-VOX_CSV_NAME = re.compile(r"port_hardvox_s(\d+)_eval_(\d+)\.csv$")
-JAX_VOX_CSV_NAME = re.compile(r"eval_step(\d+)\.csv$")
+JAX_RUN_CSV_NAME = re.compile(r"eval_step(\d+)\.csv$")
+
+FLAG_DOCS_DIR = "docs/flagship_head_to_head"
+JAX_FLAG_DIR = "docs/flag100k_hard"  # the JAX run's grids: eval_step<step:08d>.csv
+FLAG_BAR_STEPS = (5000, 10000)
+# the JAX glyph study's readings whose largest seed range is the flagship bar's delta
+FLAG_DELTA_STEPS = (4999, 10000)
+FLAG_EXAMPLES_PER_CLASS = 100  # the CLI's default
+# the images the CLI writes every save_imgs_every (its default) steps, whose write
+# times give the run's steps/s
+GRID_EVERY = 500
 
 
 def set_command(ds_root: str, make_set: str = MAKE_SET) -> list:
@@ -362,184 +403,442 @@ def pooled_report(groups: dict) -> list:
 
 
 def record_set(ds_root: str, csv_dir: str, name: str, make_set: str, ext: str,
-               built: bool, seconds: float) -> None:
-    """Print the set's digest and write it, with its command, to ``csv_dir/name``."""
+               built: bool, seconds: float) -> dict:
+    """Print the set's digest and write it, with its command, to ``csv_dir/name``;
+    returns the record."""
     digest, n_images = set_digest(ds_root, ext)
     print(f"set {ds_root}: {'built' if built else 'found'} ({seconds:.1f} s), {n_images} "
           f"images, sha256 {digest}", flush=True)
     os.makedirs(csv_dir, exist_ok=True)
+    record = {"command": ["python"] + set_command(ds_root, make_set)[1:],
+              "images": n_images, "sha256_paths_and_pixels": digest}
     with open(os.path.join(csv_dir, name), "w") as f:
-        json.dump({"command": ["python"] + set_command(ds_root, make_set)[1:],
-                   "images": n_images, "sha256_paths_and_pixels": digest}, f, indent=1)
+        json.dump(record, f, indent=1)
         f.write("\n")
+    return record
 
 
-def vox_csv_path(csv_dir: str, seed: int, step: int) -> str:
-    return os.path.join(csv_dir, f"port_hardvox_s{seed}_eval_{step:08d}.csv")
+class Game(NamedTuple):
+    """One configuration of the port's image CLI held to one trained JAX run."""
+    name: str
+    prefix: str  # of the CSVs and records in docs_dir
+    docs_dir: str
+    jax_dir: str
+    make_set: str
+    ext: str  # the set's image files
+    ds_root: str
+    outdir: str
+    n_steps: int
+    img_size: int
+    examples_per_class: int  # episodes a class an epoch
+    config: tuple  # the config's flags where it is not the CLI's defaults
+    one_card_data: tuple  # the loader's flag on one card
+    eval_flags: tuple
+
+    @property
+    def set_record(self) -> str:
+        return f"{self.prefix}_set.json"
 
 
-def train_vox(seed: int, ds_root: str, outdir: str, n_steps: int, device: str,
-              sizes: list, cudnn_benchmark: bool = False) -> str:
-    """One seed of the VoxCeleb2 config through the port's CLI, to ``n_steps``;
-    returns its experiment directory."""
-    n_train = len(glob.glob(os.path.join(ds_root, "train", "*", "*")))  # one class a video
-    batch = int(sizes[sizes.index("--batch_size") + 1])
-    per_epoch = n_train * VOX_EXAMPLES_PER_CLASS // batch
-    exp = os.path.join(outdir, f"seed_{seed}")
-    cmd = [sys.executable, "-m", VOX_TRAIN_MODULE, "--dataset_root", ds_root, "-o", exp,
-           *VOX_CONFIG, *sizes, "--compute_dtype", "bfloat16", "--device_data", "on",
-           "--ds_n_examples_per_cls", str(VOX_EXAMPLES_PER_CLASS), "--seed", str(seed),
-           # the loop numbers its steps from 0: the epochs run past step n_steps
-           "--n_epochs", str(n_steps // per_epoch + 1), "--save_every", str(n_steps),
-           "--cudnn_benchmark", str(int(cudnn_benchmark)), "--device", device]
-    os.makedirs(outdir, exist_ok=True)
-    print(" ".join(cmd[1:]), flush=True)
+VOX = Game("vox", "port_hardvox", VOX_DOCS_DIR, JAX_VOX_DIR, MAKE_VOX_SET, "jpg",
+           "build/hard_vox64", "build/hard_vox_head_to_head", VOX_BAR_STEP, 64,
+           VOX_EXAMPLES_PER_CLASS,
+           VOX_CONFIG + ("--compute_dtype", "bfloat16", "--ds_n_examples_per_cls",
+                         str(VOX_EXAMPLES_PER_CLASS)),
+           ("--device_data", "on"), ("--dataset_type", "voxceleb2", "--img_channels", "3"))
+# the CLI's defaults are the flagship config; on one card its loader stages the set
+# on the card ("auto"), as the JAX CLI's does
+FLAG = Game("flagship", "port_flag", FLAG_DOCS_DIR, JAX_FLAG_DIR, MAKE_SET, "png",
+            "build/hard_glyphs32", "build/flagship_head_to_head", FLAG_BAR_STEPS[-1], 32,
+            FLAG_EXAMPLES_PER_CLASS, (), (), ())
+RUN_CSV_NAME = re.compile(r"(port_hardvox|port_flag)_s(\d+)(?:_cards(\d+))?_eval_(\d+)\.csv$")
+
+
+def run_tag(seed: int, cards: int) -> str:
+    """A run's name in its files: the seed, and the cards when more than one."""
+    return f"s{seed}" + (f"_cards{cards}" if cards > 1 else "")
+
+
+def run_csv_path(game: Game, csv_dir: str, seed: int, cards: int, step: int) -> str:
+    return os.path.join(csv_dir, f"{game.prefix}_{run_tag(seed, cards)}_eval_{step:08d}.csv")
+
+
+def visible_cards(device: str) -> list:
+    """The ids of the cards this process sees (``["0"]`` on the CPU)."""
+    if os.environ.get("CUDA_VISIBLE_DEVICES"):
+        return os.environ["CUDA_VISIBLE_DEVICES"].split(",")
+    if device == "cuda":
+        import torch
+
+        return [str(i) for i in range(torch.cuda.device_count())]
+    return ["0"]
+
+
+def train_command(game: Game, seed: int, ds_root: str, exp: str, sizes: list, n_epochs: int,
+                  save_every: int, cudnn_benchmark: bool, cards: int, device: str,
+                  visible: list) -> tuple:
+    """(command, environment) of one run of the port's image CLI on ``cards`` cards.
+
+    One card: the first of ``visible``, pinned through ``CUDA_VISIBLE_DEVICES`` (with
+    more visible the CLI would train data parallel over all of them), and the game's
+    loader.  More: ``cards`` of ``visible`` left visible and ``--device_data off``,
+    since the CLI refuses the device loader in a process group; it then starts one
+    worker a card and trains data parallel at the same global batch.  With
+    ``--device cpu`` the ranks are started by ``torch.distributed.run`` and join over
+    gloo."""
+    if cards > len(visible) and device == "cuda":
+        raise SystemExit(f"--cards {cards}: only {len(visible)} visible")
+    data = game.one_card_data if cards == 1 else ("--device_data", "off")
+    flags = ["--dataset_root", ds_root, "-o", exp, *game.config, *sizes, *data,
+             "--seed", str(seed), "--n_epochs", str(n_epochs), "--save_every", str(save_every),
+             "--cudnn_benchmark", str(int(cudnn_benchmark)), "--device", device]
+    launcher = [sys.executable, "-m"]
+    env = dict(os.environ)
+    if cards == 1:
+        env["CUDA_VISIBLE_DEVICES"] = visible[0]
+    elif device == "cpu":
+        launcher += ["torch.distributed.run", "--standalone", "--nproc_per_node", str(cards),
+                     "-m"]
+    elif cards < len(visible):
+        env["CUDA_VISIBLE_DEVICES"] = ",".join(visible[:cards])
+    return launcher + [IMG_TRAIN_MODULE] + flags, env
+
+
+def grid_marks(exp: str) -> list:
+    """[(step, seconds since the epoch)] of the image grids the CLI wrote: each step's
+    first write time.  The CLI writes them every ``GRID_EVERY`` steps from step 0."""
+    first = {}
+    for p in glob.glob(os.path.join(exp, "imgs", "**", "*.png"), recursive=True):
+        step = int(Path(p).stem)
+        first[step] = min(first.get(step, float("inf")), os.path.getmtime(p))
+    return sorted(first.items())
+
+
+def steps_per_sec(marks: list):
+    """Steps over seconds from the first mark to the last; None with fewer than two."""
+    if len(marks) < 2:
+        return None
+    (s0, t0), (s1, t1) = marks[0], marks[-1]
+    return (s1 - s0) / (t1 - t0)
+
+
+def run_training(cmd: list, env: dict, exp: str, log_path: str, steps: list, on_checkpoint,
+                 min_rate=None, deadline=None, poll: float = 2.0) -> dict:
+    """Run ``cmd`` and, while it trains, call ``on_checkpoint(step)`` for each of ``steps``
+    whose checkpoint has landed (a checkpoint is written whole or not at all) and print
+    each image grid's step and the steps/s since the last.  Stops the run (its whole
+    process group: the CLI's workers too) when the steps/s from its first grid to its
+    second is under ``min_rate``, or ``deadline`` seconds after its start.  Returns
+    {"seconds", "stopped" (None, "min_rate" or "deadline"), "steps_per_sec",
+    "grid_marks": [[step, seconds after the first grid], ...]}."""
     t0 = time.perf_counter()
-    # one card, the card the bar was set on: with more visible the CLI trains data
-    # parallel over all of them (and refuses --device_data on)
-    env = dict(os.environ,
-               CUDA_VISIBLE_DEVICES=os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0])
-    with open(os.path.join(outdir, f"seed_{seed}.log"), "w") as log:
-        proc = subprocess.run(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
-    lines = Path(outdir, f"seed_{seed}.log").read_text().splitlines()
-    if proc.returncode != 0:
-        print("\n".join(lines[-30:]))
-        raise SystemExit(f"seed {seed}: training failed")
-    print(f"seed {seed}: {per_epoch} steps an epoch, {n_steps} steps and on to the epoch's "
-          f"end in {time.perf_counter() - t0:.1f} s; " + "; ".join(lines[-2:]), flush=True)
-    return exp
+    done, seen, stopped = set(), 0, None
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            while True:
+                exited = proc.poll() is not None
+                for step in steps:
+                    ckpt = os.path.join(exp, "ckpts", f"model_{step:08d}")
+                    if step not in done and os.path.exists(ckpt):
+                        on_checkpoint(step)
+                        done.add(step)
+                marks = grid_marks(exp)
+                for (s0, m0), (s1, m1) in zip(marks[max(seen - 1, 0):], marks[max(seen, 1):]):
+                    print(f"  step {s1}: {(s1 - s0) / (m1 - m0):.4f} steps/s since step {s0}",
+                          flush=True)
+                seen = len(marks)
+                if min_rate is not None and seen >= 2 and steps_per_sec(marks[:2]) < min_rate:
+                    stopped = "min_rate"
+                elif deadline is not None and time.perf_counter() - t0 > deadline:
+                    stopped = "deadline"
+                if exited or stopped:
+                    break
+                time.sleep(poll)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    if stopped is None and proc.returncode != 0:
+        print("\n".join(Path(log_path).read_text().splitlines()[-30:]))
+        raise SystemExit(f"{cmd[-1]}: training failed ({proc.returncode})")
+    marks = grid_marks(exp)
+    return {"seconds": time.perf_counter() - t0, "stopped": stopped,
+            "steps_per_sec": steps_per_sec(marks),
+            "grid_marks": [[s, round(t - marks[0][1], 3)] for s, t in marks]}
 
 
-def eval_vox(exp: str, seed: int, step: int, ds_root: str, csv_dir: str, device: str,
-             img_size: int) -> str:
-    """The eval CLI on the checkpoint at ``step``, flags of ``eval_hardvox_grid.sh``."""
-    path = vox_csv_path(csv_dir, seed, step)
-    os.makedirs(csv_dir, exist_ok=True)
+def eval_run(game: Game, exp: str, path: str, step: int, ds_root: str, device: str,
+             img_size: int, card: str) -> None:
+    """The port's eval CLI on the checkpoint at ``step``, on one card: the val split,
+    m1 n5 k5, at the trained image size (``eval_hardvox_grid.sh``'s flags for vox)."""
     t0 = time.perf_counter()
     subprocess.run([sys.executable, "-m", EVAL_MODULE, "--ds_root", ds_root,
-                    "--dataset_type", "voxceleb2", "--img_size", str(img_size),
-                    "--img_channels", "3", "--m", "1", "--n", "5", "--k", "5",
+                    "--img_size", str(img_size), *game.eval_flags,
+                    "--m", "1", "--n", "5", "--k", "5",
                     "--gim_exp_dir", exp, "--specific_model", f"model_{step:08d}",
-                    "--csv_file_path", path, "--device", device], check=True, cwd=REPO)
-    shutil.copyfile(os.path.join(exp, "args.json"),
-                    os.path.join(csv_dir, f"port_hardvox_s{seed}_args.json"))
-    print(f"seed {seed} step {step}: {path} ({time.perf_counter() - t0:.1f} s)", flush=True)
-    return path
+                    "--csv_file_path", path, "--device", device], check=True, cwd=REPO,
+                   env=dict(os.environ, CUDA_VISIBLE_DEVICES=card))
+    print(f"step {step}: {path} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def load_vox_aucs(*dirs) -> dict:
-    """{(impl, step, attacker): {seed: auc}} of the JAX run's CSVs (seed 0: its seed
-    was not recorded) and the port's ``port_hardvox_`` CSVs in ``dirs``."""
+def load_run_aucs(game: Game, *dirs) -> dict:
+    """{(impl, step, attacker): {run: auc}} of the JAX run's CSVs (run 0: its seed was
+    not recorded) and the port's ``<game.prefix>_`` CSVs in ``dirs``, whose run is
+    (seed, cards)."""
     rows = defaultdict(dict)
-    for path in sorted(glob.glob(os.path.join(JAX_VOX_DIR, "*.csv"))):
-        m = JAX_VOX_CSV_NAME.search(path)
+    for path in sorted(glob.glob(os.path.join(game.jax_dir, "*.csv"))):
+        m = JAX_RUN_CSV_NAME.search(path)
         if m:
             _read_aucs(path, rows, "jax", int(m.group(1)), 0)
     for d in dirs:
         for path in sorted(glob.glob(os.path.join(d, "*.csv"))):
-            m = VOX_CSV_NAME.search(os.path.basename(path))
-            if m:
-                _read_aucs(path, rows, "port", int(m.group(2)), int(m.group(1)))
+            m = RUN_CSV_NAME.search(os.path.basename(path))
+            if m and m.group(1) == game.prefix:
+                _read_aucs(path, rows, "port", int(m.group(4)),
+                           (int(m.group(2)), int(m.group(3) or 1)))
     return rows
 
 
-def _read_aucs(path: str, rows: dict, impl: str, step: int, seed: int) -> None:
+def load_vox_aucs(*dirs) -> dict:
+    return load_run_aucs(VOX, *dirs)
+
+
+def _read_aucs(path: str, rows: dict, impl: str, step: int, run) -> None:
     with open(path) as f:
         for r in csv.DictReader(f):
             if r["au_type"] == "gim":
-                rows[(impl, step, r["im_type"])][seed] = float(r["auc"])
+                rows[(impl, step, r["im_type"])][run] = float(r["auc"])
+
+
+def run_label(impl: str, run) -> str:
+    if impl == "jax":
+        return "JAX"
+    seed, cards = run
+    return f"port s{seed}, {cards} card{'s' if cards > 1 else ''}"
+
+
+def run_table(rows: dict) -> list:
+    """Markdown lines: each step and run, its AUC of each attacker."""
+    runs = sorted({(step, impl, run) for (impl, step, _), v in rows.items() for run in v},
+                  key=lambda x: (x[0], x[1], repr(x[2])))
+    out = ["| step | run | " + " | ".join(ATTACKERS) + " |", "|---|---|" + "---|" * len(ATTACKERS)]
+    for step, impl, run in runs:
+        cells = [rows.get((impl, step, a), {}).get(run) for a in ATTACKERS]
+        out.append(f"| {step} | {run_label(impl, run)} | "
+                   + " | ".join("—" if v is None else f"{v:.4f}" for v in cells) + " |")
+    return out
 
 
 def vox_verdict(rows: dict, step: int = VOX_BAR_STEP) -> list:
-    """Each port seed's AUC at ``step`` against the JAX run's checkpoints: gim and
+    """Each port run's AUC at ``step`` against the JAX run's checkpoints: gim and
     replay at least the lowest, rnd_src inside [min, max]."""
     out = []
     for a in ATTACKERS:
         jax = [v for (impl, _, att), seeds in rows.items() if impl == "jax" and att == a
                for v in seeds.values()]
-        for seed, auc in sorted(rows.get(("port", step, a), {}).items()):
+        for (seed, cards), auc in sorted(rows.get(("port", step, a), {}).items()):
             lo, hi = min(jax), (max(jax) if a == "rnd_src" else 1.0)
-            out.append({"step": step, "attacker": a, "seed": seed, "port": auc,
+            out.append({"step": step, "attacker": a, "seed": seed, "cards": cards, "port": auc,
                         "jax_min": lo, "jax_max": hi, "ok": bool(lo <= auc <= hi)})
     return out
 
 
-def vox_report(rows: dict) -> bool:
-    """Print the table and the bar of ``load_vox_aucs``' rows; True when every reading
-    of every port seed at the bar step meets it."""
-    print("\n".join(table(rows)))
-    checks = vox_verdict(rows)
-    for c in checks:
-        print(f"bar step {c['step']} {c['attacker']} seed {c['seed']}: port {c['port']:.4f}, "
-              f"JAX [{c['jax_min']:.4f}, {c['jax_max']:.4f}]: "
-              f"{'inside' if c['ok'] else 'MISSED'}")
+def flag_deltas(rows: dict) -> dict:
+    """{attacker: delta}: the largest range over seeds of the JAX glyph study's
+    readings (``load_aucs``' rows) at ``FLAG_DELTA_STEPS``, to 3 decimals."""
+    return {a: round(max(max(v) - min(v) for v in (
+        list(rows[("jax", step, a)].values()) for step in FLAG_DELTA_STEPS)), 3)
+        for a in ATTACKERS}
+
+
+def flag_verdict(rows: dict, deltas: dict) -> list:
+    """Each port run's AUC at each of ``FLAG_BAR_STEPS`` inside the JAX run's reading
+    at that step +- the attacker's delta (the upper edge at most 1)."""
+    out = []
+    for step in FLAG_BAR_STEPS:
+        for a in ATTACKERS:
+            jax = rows.get(("jax", step, a), {}).get(0)
+            for (seed, cards), auc in sorted(rows.get(("port", step, a), {}).items()):
+                lo, hi = jax - deltas[a], min(1.0, jax + deltas[a])
+                out.append({"step": step, "attacker": a, "seed": seed, "cards": cards,
+                            "port": auc, "jax": jax, "lo": lo, "hi": hi,
+                            "ok": bool(lo <= auc <= hi)})
+    return out
+
+
+def print_runs(game: Game, *dirs) -> None:
+    """Each port run's record beside its CSVs: cards, steps/s, the card, the set."""
+    for d in dirs:
+        for path in sorted(glob.glob(os.path.join(d, f"{game.prefix}_s*_args.json"))):
+            run = json.loads(Path(path).read_text()).get("study_run")
+            if run:
+                rate = run["steps_per_sec"]
+                print(f"{os.path.basename(path)}: {run['cards']} card(s), "
+                      f"{'not read' if rate is None else f'{rate:.4f}'} steps/s "
+                      f"(grids every {GRID_EVERY} steps), {run['train_seconds']:.1f} s, "
+                      f"stopped {run['stopped']}, {run['card']}")
+        record = os.path.join(d, game.set_record)
+        if game is FLAG and os.path.exists(record):
+            print(f"{record}: {set_verdict(record)}")
+
+
+def set_verdict(record: str) -> str:
+    """Whether the digest in ``record`` is the glyph study's."""
+    study = os.path.join(DOCS_DIR, "port_hard_set.json")
+    mine, its = (json.loads(Path(p).read_text())["sha256_paths_and_pixels"]
+                 for p in (record, study))
+    return f"{'the' if mine == its else 'NOT the'} glyph study's set ({study})"
+
+
+def game_report(game: Game, *dirs) -> bool:
+    """Print the table, each run's record and the bar of the game's CSVs in ``dirs``;
+    True when every reading of every port run at the bar's steps meets it."""
+    rows = load_run_aucs(game, *dirs)
+    print("\n".join(run_table(rows)))
+    print_runs(game, *dirs)
+    if game is VOX:
+        checks = vox_verdict(rows)
+        lines = [f"bar step {c['step']} {c['attacker']} {run_label('port', (c['seed'], c['cards']))}: "
+                 f"port {c['port']:.4f}, JAX [{c['jax_min']:.4f}, {c['jax_max']:.4f}]"
+                 for c in checks]
+    else:
+        deltas = flag_deltas(load_aucs(DOCS_DIR))
+        checks = flag_verdict(rows, deltas)
+        lines = [f"bar step {c['step']} {c['attacker']} {run_label('port', (c['seed'], c['cards']))}: "
+                 f"port {c['port']:.4f}, JAX {c['jax']:.4f} +- {deltas[c['attacker']]:.3f} = "
+                 f"[{c['lo']:.4f}, {c['hi']:.4f}]" for c in checks]
+    for line, c in zip(lines, checks):
+        print(f"{line}: {'inside' if c['ok'] else 'MISSED'}")
     met = bool(checks) and all(c["ok"] for c in checks)
     print(f"bar: {'met' if met else 'missed or not read'} at {len(checks)} readings")
     return met
 
 
-def main_vox(args) -> None:
+def main_game(game: Game, args) -> None:
+    """Build the set, train each seed on ``--cards`` cards (scoring each checkpoint as
+    it lands), copy its arguments and run record, and print the report."""
     if args.report:
-        vox_report(load_vox_aucs(VOX_DOCS_DIR, args.csv_dir))
+        game_report(game, game.docs_dir, args.csv_dir)
         return
     t0 = time.perf_counter()
-    built = build_set(args.ds_root, MAKE_VOX_SET)
-    record_set(args.ds_root, args.csv_dir, "port_hardvox_set.json", MAKE_VOX_SET, "jpg", built,
+    built = build_set(args.ds_root, game.make_set)
+    record_set(args.ds_root, args.csv_dir, game.set_record, game.make_set, game.ext, built,
                time.perf_counter() - t0)
+    if game is FLAG:
+        print(f"set: {set_verdict(os.path.join(args.csv_dir, game.set_record))}", flush=True)
     sizes = ["--img_size", str(args.img_size), "--style_dim", str(args.style_dim),
              "--batch_size", str(args.batch_size)]
+    n_train = len(glob.glob(os.path.join(args.ds_root, "train", "*", "*")))  # classes
+    per_epoch = n_train * game.examples_per_class // args.batch_size
+    # the loop numbers its steps from 0: the epochs run past step n_steps
+    n_epochs = args.n_steps // per_epoch + 1
+    visible = visible_cards(args.device)
+    steps = args.eval_steps or list(range(args.save_every, args.n_steps + 1, args.save_every))
+    os.makedirs(args.outdir, exist_ok=True)
     for seed in args.seeds:
-        exp = train_vox(seed, args.ds_root, args.outdir, args.n_steps, args.device, sizes,
-                        args.cudnn_benchmark)
-        eval_vox(exp, seed, args.n_steps, args.ds_root, args.csv_dir, args.device,
-                 args.img_size)
-    vox_report(load_vox_aucs(VOX_DOCS_DIR, args.csv_dir))
+        tag = run_tag(seed, args.cards)
+        exp = os.path.join(args.outdir, "seed_" + tag[1:])
+        shutil.rmtree(exp, ignore_errors=True)  # the grids' times are this run's
+        cmd, env = train_command(game, seed, args.ds_root, exp, sizes, n_epochs,
+                                 args.save_every, args.cudnn_benchmark, args.cards,
+                                 args.device, visible)
+        print(" ".join(cmd[1:]) + f"  ({per_epoch} steps an epoch, {n_epochs} epochs; "
+              f"CUDA_VISIBLE_DEVICES={env.get('CUDA_VISIBLE_DEVICES', '')})", flush=True)
+
+        def score(step, exp=exp, seed=seed):
+            eval_run(game, exp, run_csv_path(game, args.csv_dir, seed, args.cards, step), step,
+                     args.ds_root, args.device, args.img_size, visible[0])
+
+        run = run_training(cmd, env, exp, exp + ".log", steps,
+                           score, args.min_steps_per_sec, args.deadline)
+        print(f"{tag}: {run['seconds']:.1f} s, stopped {run['stopped']}, steps/s "
+              f"{run['steps_per_sec']}", flush=True)
+        args_json = json.loads(Path(exp, "args.json").read_text())
+        args_json["study_run"] = {"cards": args.cards, "card": args.card,
+                                  "train_seconds": run["seconds"], "stopped": run["stopped"],
+                                  "steps_per_sec": run["steps_per_sec"],
+                                  "grid_marks": run["grid_marks"]}
+        with open(os.path.join(args.csv_dir, f"{game.prefix}_{tag}_args.json"), "w") as f:
+            json.dump(args_json, f, indent=1)
+            f.write("\n")
+        if run["stopped"] == "min_rate":
+            raise SystemExit(f"{tag}: under {args.min_steps_per_sec} steps/s from its first "
+                             f"grid to its second: stopped")
+    game_report(game, game.docs_dir, args.csv_dir)
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--vox", action="store_true",
-                    help="the VoxCeleb-shaped R1 game against the JAX hard-vox run")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--vox", action="store_true",
+                      help="the VoxCeleb-shaped R1 game against the JAX hard-vox run")
+    mode.add_argument("--flagship", action="store_true",
+                      help="the flagship game against the JAX run on the hard glyph set")
     ap.add_argument("--seeds", type=int, nargs="+", default=None,
-                    help="default: 2 3 4 (glyphs), 1 (--vox: the JAX CLI's default seed)")
+                    help="default: 2 3 4 (glyphs), 1 (--vox, --flagship: the JAX CLI's "
+                         "default seed)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--ds_root", default=None,
                     help="default: build/hard_glyphs32, or build/hard_vox64 with --vox")
     ap.add_argument("--outdir", default=None,
-                    help="experiment directories (seed_<s>/args.json, ckpts/) and logs; "
-                         "default build/hard_head_to_head or build/hard_vox_head_to_head")
+                    help="experiment directories (seed_<s>/args.json, ckpts/; --vox and "
+                         "--flagship: seed_<s>[_cards<N>]/) and logs; default "
+                         "build/hard_head_to_head, build/hard_vox_head_to_head or "
+                         "build/flagship_head_to_head")
     ap.add_argument("--csv_dir", default=None,
-                    help=f"default {DOCS_DIR}, or {VOX_DOCS_DIR} with --vox")
-    ap.add_argument("--n_steps", type=int, default=None, help="default 4999, or 2500 (--vox)")
-    ap.add_argument("--save_every", type=int, default=400)
-    ap.add_argument("--eval_steps", type=int, nargs="+", default=list(EVAL_STEPS))
-    ap.add_argument("--img_size", type=int, default=64, help="--vox")
-    ap.add_argument("--style_dim", type=int, default=512, help="--vox")
-    ap.add_argument("--batch_size", type=int, default=128, help="--vox")
+                    help=f"default {DOCS_DIR}, {VOX_DOCS_DIR} (--vox) or {FLAG_DOCS_DIR} "
+                         "(--flagship)")
+    ap.add_argument("--n_steps", type=int, default=None,
+                    help="default 4999, 2500 (--vox) or 10000 (--flagship)")
+    ap.add_argument("--save_every", type=int, default=None,
+                    help="default 400, --n_steps (--vox) or 5000 (--flagship)")
+    ap.add_argument("--eval_steps", type=int, nargs="+", default=None,
+                    help="default: the glyph study's steps; --vox and --flagship: each "
+                         "checkpoint of --save_every through --n_steps")
+    ap.add_argument("--img_size", type=int, default=None,
+                    help="--vox, --flagship: default 64 and 32")
+    ap.add_argument("--style_dim", type=int, default=512, help="--vox, --flagship")
+    ap.add_argument("--batch_size", type=int, default=128, help="--vox, --flagship")
     ap.add_argument("--cudnn_benchmark", action="store_true",
-                    help="--vox: the CLI's --cudnn_benchmark 1 (cuDNN times its conv "
-                         "algorithms)")
+                    help="--vox, --flagship: the CLI's --cudnn_benchmark 1 (cuDNN times its "
+                         "conv algorithms)")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="--vox, --flagship: 1 pins the CLI to one card; N > 1 leaves N "
+                         "visible and the CLI trains data parallel over them (the eval "
+                         "runs on one card)")
+    ap.add_argument("--min_steps_per_sec", type=float, default=None,
+                    help="--vox, --flagship: stop a run that trains slower than this from "
+                         "its first image grid (step 0) to its second")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="--vox, --flagship: stop training this many seconds after a run's "
+                         "start; the checkpoints scored by then keep their CSVs")
     ap.add_argument("--report", action="store_true",
                     help="print the table and the bar of the CSVs present, and stop")
     args = ap.parse_args(argv)
-    vox = args.vox
-    args.seeds = args.seeds or ([1] if vox else [2, 3, 4])
-    args.ds_root = args.ds_root or ("build/hard_vox64" if vox else "build/hard_glyphs32")
-    args.outdir = args.outdir or ("build/hard_vox_head_to_head" if vox
-                                  else "build/hard_head_to_head")
-    args.csv_dir = args.csv_dir or (VOX_DOCS_DIR if vox else DOCS_DIR)
-    args.n_steps = args.n_steps or (VOX_BAR_STEP if vox else 4999)
+    game = VOX if args.vox else FLAG if args.flagship else None
+    args.seeds = args.seeds or ([1] if game else [2, 3, 4])
+    args.ds_root = args.ds_root or (game.ds_root if game else "build/hard_glyphs32")
+    args.outdir = args.outdir or (game.outdir if game else "build/hard_head_to_head")
+    args.csv_dir = args.csv_dir or (game.docs_dir if game else DOCS_DIR)
+    args.n_steps = args.n_steps or (game.n_steps if game else 4999)
+    args.save_every = args.save_every or (
+        args.n_steps if game is VOX else FLAG_BAR_STEPS[0] if game else 400)
+    args.img_size = args.img_size or (game.img_size if game else None)
+    args.card = "cpu"
     os.chdir(REPO)  # the paths are the checkout's, as the CSVs record them
     if args.device == "cuda" and not args.report:
         import torch
 
         if not torch.cuda.is_available():
             raise SystemExit("--device cuda: torch.cuda.is_available() is false")
-        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             check=True).stdout.strip(), flush=True)
-    if vox:
-        main_vox(args)
+        args.card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                    "--format=csv,noheader"], capture_output=True, text=True,
+                                   check=True).stdout.strip()
+        print(args.card, flush=True)
+    if game:
+        main_game(game, args)
         return
     if args.report:
         report(load_aucs(DOCS_DIR, args.csv_dir))
@@ -554,7 +853,8 @@ def main(argv=None) -> None:
 
     train_seeds(args.seeds, args.ds_root, args.outdir, args.n_steps, args.save_every,
                 args.device)
-    evaluate(args.seeds, args.eval_steps, args.ds_root, args.outdir, args.csv_dir, args.device)
+    evaluate(args.seeds, args.eval_steps or list(EVAL_STEPS), args.ds_root, args.outdir,
+             args.csv_dir, args.device)
     report(load_aucs(DOCS_DIR, args.csv_dir))
 
 

@@ -21,9 +21,11 @@ from __future__ import annotations
 import csv
 import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -326,3 +328,205 @@ def test_vox_rehearsal_on_the_cpu(tmp_path, monkeypatch, n_steps, cudnn_benchmar
         "gim": True, "replay": False, "rnd_src": True}  # replay under the JAX run's 0.9935
     assert round(checks[1]["jax_min"], 4) == 0.9935
     h2h.main(["--vox", "--report", "--csv_dir", str(tmp_path)])
+
+
+# the flagship bar's bands, written before any run of the port at this config:
+# the JAX run's reading at the step +- delta, the upper edge at most 1
+FLAG_BANDS = {
+    (5000, "gim"): (0.5831, 0.8071), (5000, "replay"): (0.9295, 1.0),
+    (5000, "rnd_src"): (0.4598, 0.8358), (10000, "gim"): (0.6356, 0.8596),
+    (10000, "replay"): (0.9496, 1.0), (10000, "rnd_src"): (0.6226, 0.9986)}
+
+
+def flag_checks(tmp_path, aucs_at: dict) -> tuple:
+    """The flagship bar's checks and report over port CSVs of seed 1 with
+    ``aucs_at[step][attacker]``."""
+    for step, aucs in aucs_at.items():
+        write_port_csv(tmp_path / f"port_flag_s1_eval_{step:08d}.csv", aucs)
+    rows = h2h.load_run_aucs(h2h.FLAG, str(tmp_path))
+    return (h2h.flag_verdict(rows, h2h.flag_deltas(h2h.load_aucs(str(DOCS)))),
+            h2h.game_report(h2h.FLAG, str(tmp_path)))
+
+
+def test_flag_deltas_and_bands_of_the_committed_csvs(tmp_path, monkeypatch):
+    """delta is the largest seed range of the JAX glyph study's readings at 4999 and
+    10000; the bands are the JAX run's readings at 5000 and 10000 +- delta."""
+    monkeypatch.chdir(REPO)
+    assert h2h.flag_deltas(h2h.load_aucs(str(DOCS))) == {
+        "gim": 0.112, "replay": 0.05, "rnd_src": 0.188}
+    checks, met = flag_checks(tmp_path, {s: {a: 0.9 for a in h2h.ATTACKERS}
+                                         for s in h2h.FLAG_BAR_STEPS})
+    assert {(c["step"], c["attacker"]): (round(c["lo"], 4), round(c["hi"], 4))
+            for c in checks} == FLAG_BANDS
+    assert {(c["seed"], c["cards"]) for c in checks} == {(1, 1)}
+    assert not met  # 0.9 is under replay's bands and over gim's
+
+
+@pytest.mark.parametrize("side", ["inside", "outside"])
+@pytest.mark.parametrize("edge", ["lo", "hi"])
+@pytest.mark.parametrize("attacker", h2h.ATTACKERS)
+@pytest.mark.parametrize("step", h2h.FLAG_BAR_STEPS)
+def test_flag_bar_on_synthetic_port_csvs(tmp_path, monkeypatch, step, attacker, edge, side):
+    """A reading 1e-4 inside or outside one edge of its band, every other reading
+    in the middle of its band.  Replay's upper edge is 1: an AUC above it is no
+    reading the grid gives, and the bar refuses it all the same."""
+    monkeypatch.chdir(REPO)
+    aucs_at = {s: {a: sum(FLAG_BANDS[(s, a)]) / 2 for a in h2h.ATTACKERS}
+               for s in h2h.FLAG_BAR_STEPS}
+    lo, hi = FLAG_BANDS[(step, attacker)]
+    shift = 1e-4 if side == "inside" else -1e-4
+    aucs_at[step][attacker] = lo + shift if edge == "lo" else hi - shift
+    checks, met = flag_checks(tmp_path, aucs_at)
+    assert len(checks) == 6
+    assert {(c["step"], c["attacker"]) for c in checks if not c["ok"]} == (
+        set() if side == "inside" else {(step, attacker)})
+    assert met == (side == "inside")
+
+
+@pytest.mark.parametrize("game", ["vox", "flagship"])
+def test_cards_build_the_one_card_and_the_data_parallel_commands(monkeypatch, game):
+    """--cards 1 pins the CLI to the first visible card with the game's loader (vox:
+    the device loader, as PR 10's runs); --cards 4 of 4 leaves them visible and
+    passes --device_data off; --cards 2 of 4 leaves the first two; on the CPU the
+    ranks come from torch.distributed.run; more cards than visible is refused."""
+    g = h2h.VOX if game == "vox" else h2h.FLAG
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "3,2,1,0")
+    sizes = ["--img_size", "64", "--style_dim", "512", "--batch_size", "128"]
+
+    def command(cards, device="cuda", visible=("3", "2", "1", "0")):
+        return h2h.train_command(g, 1, "ds", "exp", sizes, 27, 2500, True, cards, device,
+                                 list(visible))
+
+    tail = ["--seed", "1", "--n_epochs", "27", "--save_every", "2500", "--cudnn_benchmark",
+            "1", "--device", "cuda"]
+    config = [*h2h.VOX_CONFIG, "--compute_dtype", "bfloat16", "--ds_n_examples_per_cls",
+              "20"] if game == "vox" else []
+    one_card = ["--device_data", "on"] if game == "vox" else []
+    cli = [sys.executable, "-m", h2h.IMG_TRAIN_MODULE, "--dataset_root", "ds", "-o", "exp",
+           *config, *sizes]
+    cmd, env = command(1)
+    assert cmd == cli + one_card + tail
+    assert env["CUDA_VISIBLE_DEVICES"] == "3"
+    cmd, env = command(4)
+    assert cmd == cli + ["--device_data", "off"] + tail
+    assert env["CUDA_VISIBLE_DEVICES"] == "3,2,1,0"  # as this process sees them
+    cmd, env = command(2)
+    assert cmd == cli + ["--device_data", "off"] + tail
+    assert env["CUDA_VISIBLE_DEVICES"] == "3,2"
+    cmd, env = command(2, "cpu", ["0"])
+    assert cmd[:7] == [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                       "--nproc_per_node", "2", "-m"]
+    assert cmd[7:] == cli[2:] + ["--device_data", "off"] + tail[:-1] + ["cpu"]
+    with pytest.raises(SystemExit):
+        command(8)
+
+
+FAKE_CLI = r"""
+import os, subprocess, sys, time
+exp, rate, mode = sys.argv[1], float(sys.argv[2]), sys.argv[3]
+t = time.time() - 1000
+for step in (0, 500):
+    d = os.path.join(exp, "imgs", "train", "leaked")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"{step:08d}.png")
+    open(path, "wb").close()
+    os.utime(path, (t + step / rate, t + step / rate))
+os.makedirs(os.path.join(exp, "ckpts"), exist_ok=True)
+open(os.path.join(exp, "ckpts", "model_00000500"), "wb").close()
+if mode == "fail":
+    sys.exit(3)
+if mode == "hang":
+    child = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(120)"])
+    print(child.pid, flush=True)
+    time.sleep(120)
+"""
+
+
+def gone(pid: int) -> bool:
+    """The process has ended (a zombie left to an init that does not reap counts)."""
+    try:
+        return Path(f"/proc/{pid}/stat").read_text().split()[2] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+@pytest.mark.parametrize("case", ["ends", "min_rate", "deadline", "fails"])
+def test_run_training_scores_checkpoints_and_stops_slow_runs(tmp_path, case):
+    """``run_training`` on a stand-in for the CLI that writes two image grids 500
+    steps apart (2 steps/s, or 1 where the run is too slow) and a checkpoint: the
+    checkpoint is scored once, the steps/s read from the grids' times, and a run
+    under ``min_rate`` or past its deadline is stopped with every process it
+    started."""
+    exp = tmp_path / "exp"
+    rate = 1.0 if case == "min_rate" else 2.0
+    mode = {"ends": "end", "fails": "fail"}.get(case, "hang")
+    cmd = [sys.executable, "-c", FAKE_CLI, str(exp), str(rate), mode]
+    scored = []
+    log = tmp_path / "run.log"
+    t0 = time.perf_counter()
+    if case == "fails":
+        with pytest.raises(SystemExit):
+            h2h.run_training(cmd, dict(os.environ), str(exp), str(log), [500], scored.append,
+                             min_rate=1.3, poll=0.1)
+        return
+    run = h2h.run_training(cmd, dict(os.environ), str(exp), str(log), [500, 1000],
+                           scored.append, min_rate=1.3,
+                           deadline=3.0 if case == "deadline" else None, poll=0.1)
+    assert time.perf_counter() - t0 < 60
+    assert scored == [500]
+    assert run["stopped"] == {"ends": None}.get(case, case)
+    assert run["steps_per_sec"] == pytest.approx(rate)
+    assert run["grid_marks"] == [[0, 0.0], [500, pytest.approx(500 / rate)]]
+    if mode == "hang":
+        child = int(log.read_text().split()[0])
+        deadline = time.monotonic() + 10
+        while not gone(child) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        assert gone(child)
+
+
+@pytest.mark.parametrize("cards", [1, 2])
+def test_flagship_rehearsal_on_the_cpu(tmp_path, monkeypatch, cards):
+    """The --flagship mode at a tiny size: a few glyph classes of 16 px, the port's
+    CLI at its defaults but the sizes (100 episodes a class: 9 steps an epoch at
+    B=32) to a checkpoint at ``--n_steps``, scored by the eval CLI as it lands;
+    with 2 cards two CPU ranks over gloo and the host loader.  The set's record,
+    its verdict against the glyph study's, the CSVs' names and columns (the JAX
+    run's), the copied arguments with the run's record."""
+    ds = tmp_path / "ds"
+    subprocess.run([sys.executable, h2h.MAKE_SET, "--out", str(ds), "--n_alphabets", "2",
+                    "--n_chars", "3", "--val_alphabets", "1", "--imgs_per_class", "12",
+                    "--img_size", "16"], check=True, cwd=REPO, capture_output=True)
+    out, csvs = tmp_path / "runs", tmp_path / "csv"
+    monkeypatch.chdir(REPO)
+    h2h.main(["--flagship", "--device", "cpu", "--ds_root", str(ds), "--outdir", str(out),
+              "--csv_dir", str(csvs), "--n_steps", "2", "--save_every", "2", "--img_size",
+              "16", "--style_dim", "32", "--batch_size", "32", "--cards", str(cards)])
+    tag = "s1" if cards == 1 else "s1_cards2"
+    grid = f"port_flag_{tag}_eval_00000002.csv"
+    assert sorted(p.name for p in csvs.iterdir()) == sorted([
+        f"port_flag_{tag}_args.json", grid, "port_flag_set.json"])
+    with open(csvs / grid, newline="") as f:
+        lines = list(csv.reader(f))
+    with open(REPO / h2h.JAX_FLAG_DIR / "eval_step00005000.csv", newline="") as f:
+        assert lines[0] == next(csv.reader(f))
+    assert [line[1:3] for line in lines[1:]] == [["gim", im] for im in h2h.ATTACKERS]
+    assert [line[5:8] for line in lines[1:]] == [["1", "5", "5"]] * 3
+    assert all(0.0 <= float(line[-1]) <= 1.0 for line in lines[1:])
+    args = json.loads((csvs / f"port_flag_{tag}_args.json").read_text())
+    assert (args["dataset_type"], args["img_channels"], args["reg_param"], args["au_lr"],
+            args["im_lr"], args["env_noise_mapping_lr"], args["compute_dtype"],
+            args["ds_n_examples_per_cls"], args["milestones"], args["seed"],
+            args["device_data"]) == (
+        "omniglot", 1, 0.0, 1e-6, 1e-5, 1e-7, "bfloat16", 100, [], 1,
+        "auto" if cards == 1 else "off")
+    assert (args["study_run"]["cards"], args["study_run"]["card"],
+            args["study_run"]["stopped"]) == (cards, "cpu", None)
+    assert args["study_run"]["grid_marks"][0] == [0, 0.0]
+    record = json.loads((csvs / "port_flag_set.json").read_text())
+    assert record["command"] == ["python", h2h.MAKE_SET, "--out", str(ds)]
+    assert (record["sha256_paths_and_pixels"], record["images"]) == h2h.set_digest(str(ds))
+    assert h2h.set_verdict(str(csvs / "port_flag_set.json")).startswith("NOT the")
+    exp = out / ("seed_1" if cards == 1 else "seed_1_cards2")
+    assert "model_00000002" in {p.name for p in (exp / "ckpts").iterdir()}
+    assert not h2h.game_report(h2h.FLAG, str(csvs))  # no reading at a bar step
