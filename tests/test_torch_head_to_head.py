@@ -14,6 +14,10 @@
   ``scripts/make_hard_glyph_ds.py``, 3 training steps with ``--device cpu``, the
   eval grid of two checkpoints, the CSVs' names and columns (the JAX CSVs'),
   each seed's ``args.json`` and the set's record.
+* ``--vox`` and ``--flagship`` at a tiny size on the CPU (the flagship also over
+  two gloo ranks), the flagship bar's deltas and bands from the committed CSVs
+  and its verdict on each side of every band edge, the commands ``--cards``
+  builds, and ``run_training``'s scoring, steps/s and stops on a stand-in CLI.
 """
 
 from __future__ import annotations
