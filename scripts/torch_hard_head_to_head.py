@@ -562,7 +562,7 @@ def run_training(cmd: list, env: dict, exp: str, log_path: str, steps: list, on_
                 proc.wait()
     if stopped is None and proc.returncode != 0:
         print("\n".join(Path(log_path).read_text().splitlines()[-30:]))
-        raise SystemExit(f"{cmd[-1]}: training failed ({proc.returncode})")
+        raise SystemExit(f"training failed ({proc.returncode}); its log: {log_path}")
     marks = grid_marks(exp)
     return {"seconds": time.perf_counter() - t0, "stopped": stopped,
             "steps_per_sec": steps_per_sec(marks),
@@ -695,6 +695,7 @@ def set_verdict(record: str) -> str:
 def game_report(game: Game, *dirs) -> bool:
     """Print the table, each run's record and the bar of the game's CSVs in ``dirs``;
     True when every reading of every port run at the bar's steps meets it."""
+    dirs = dict.fromkeys(os.path.normpath(d) for d in dirs)  # each once, in order
     rows = load_run_aucs(game, *dirs)
     print("\n".join(run_table(rows)))
     print_runs(game, *dirs)

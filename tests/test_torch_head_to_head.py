@@ -534,3 +534,28 @@ def test_flagship_rehearsal_on_the_cpu(tmp_path, monkeypatch, cards):
     exp = out / ("seed_1" if cards == 1 else "seed_1_cards2")
     assert "model_00000002" in {p.name for p in (exp / "ckpts").iterdir()}
     assert not h2h.game_report(h2h.FLAG, str(csvs))  # no reading at a bar step
+
+
+def test_committed_vox_reading_at_the_bar_step(monkeypatch):
+    """The port's VoxCeleb-shaped run to step 2500 (seed 1, one card, the device
+    loader, cuDNN's timed algorithms): the JAX CSVs' columns, a reading of each
+    attacker, its arguments with the run's record, and the bar's verdict on it as
+    `PERF.md` reports it (rnd_src above the JAX run's range)."""
+    monkeypatch.chdir(REPO)
+    docs = REPO / h2h.VOX_DOCS_DIR
+    rows = h2h.load_vox_aucs(str(docs))
+    assert {a: list(rows[("port", 2500, a)]) for a in h2h.ATTACKERS} == {
+        a: [(1, 1)] for a in h2h.ATTACKERS}
+    with open(docs / "port_hardvox_s1_eval_00002500.csv", newline="") as f, \
+            open(REPO / h2h.JAX_VOX_DIR / "eval_step00002500.csv", newline="") as g:
+        assert next(csv.reader(f)) == next(csv.reader(g))
+    args = json.loads((docs / "port_hardvox_s1_args.json").read_text())
+    assert (args["seed"], args["device_data"], args["cudnn_benchmark"], args["n_epochs"],
+            args["save_every"], args["batch_size"], args["reg_param"]) == (
+        1, "on", True, 27, 2500, 128, 10.0)
+    run = args["study_run"]
+    assert (run["cards"], run["stopped"], run["card"]) == (
+        1, None, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert [m[0] for m in run["grid_marks"]] == [0, 500, 1000, 1500, 2000, 2500]
+    assert {c["attacker"]: c["ok"] for c in h2h.vox_verdict(rows)} == {
+        "gim": True, "replay": True, "rnd_src": False}
