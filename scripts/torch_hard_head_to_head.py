@@ -116,8 +116,8 @@ import subprocess
 import sys
 import time
 from collections import defaultdict
-from typing import NamedTuple
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -403,24 +403,20 @@ def pooled_report(groups: dict) -> list:
 
 
 def record_set(ds_root: str, csv_dir: str, name: str, make_set: str, ext: str,
-               built: bool, seconds: float) -> dict:
-    """Print the set's digest and write it, with its command, to ``csv_dir/name``;
-    returns the record."""
+               built: bool, seconds: float) -> None:
+    """Print the set's digest and write it, with its command, to ``csv_dir/name``."""
     digest, n_images = set_digest(ds_root, ext)
     print(f"set {ds_root}: {'built' if built else 'found'} ({seconds:.1f} s), {n_images} "
           f"images, sha256 {digest}", flush=True)
     os.makedirs(csv_dir, exist_ok=True)
-    record = {"command": ["python"] + set_command(ds_root, make_set)[1:],
-              "images": n_images, "sha256_paths_and_pixels": digest}
     with open(os.path.join(csv_dir, name), "w") as f:
-        json.dump(record, f, indent=1)
+        json.dump({"command": ["python"] + set_command(ds_root, make_set)[1:],
+                   "images": n_images, "sha256_paths_and_pixels": digest}, f, indent=1)
         f.write("\n")
-    return record
 
 
 class Game(NamedTuple):
     """One configuration of the port's image CLI held to one trained JAX run."""
-    name: str
     prefix: str  # of the CSVs and records in docs_dir
     docs_dir: str
     jax_dir: str
@@ -440,7 +436,7 @@ class Game(NamedTuple):
         return f"{self.prefix}_set.json"
 
 
-VOX = Game("vox", "port_hardvox", VOX_DOCS_DIR, JAX_VOX_DIR, MAKE_VOX_SET, "jpg",
+VOX = Game("port_hardvox", VOX_DOCS_DIR, JAX_VOX_DIR, MAKE_VOX_SET, "jpg",
            "build/hard_vox64", "build/hard_vox_head_to_head", VOX_BAR_STEP, 64,
            VOX_EXAMPLES_PER_CLASS,
            VOX_CONFIG + ("--compute_dtype", "bfloat16", "--ds_n_examples_per_cls",
@@ -448,7 +444,7 @@ VOX = Game("vox", "port_hardvox", VOX_DOCS_DIR, JAX_VOX_DIR, MAKE_VOX_SET, "jpg"
            ("--device_data", "on"), ("--dataset_type", "voxceleb2", "--img_channels", "3"))
 # the CLI's defaults are the flagship config; on one card its loader stages the set
 # on the card ("auto"), as the JAX CLI's does
-FLAG = Game("flagship", "port_flag", FLAG_DOCS_DIR, JAX_FLAG_DIR, MAKE_SET, "png",
+FLAG = Game("port_flag", FLAG_DOCS_DIR, JAX_FLAG_DIR, MAKE_SET, "png",
             "build/hard_glyphs32", "build/flagship_head_to_head", FLAG_BAR_STEPS[-1], 32,
             FLAG_EXAMPLES_PER_CLASS, (), (), ())
 RUN_CSV_NAME = re.compile(r"(port_hardvox|port_flag)_s(\d+)(?:_cards(\d+))?_eval_(\d+)\.csv$")

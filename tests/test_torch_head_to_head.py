@@ -559,3 +559,34 @@ def test_committed_vox_reading_at_the_bar_step(monkeypatch):
     assert [m[0] for m in run["grid_marks"]] == [0, 500, 1000, 1500, 2000, 2500]
     assert {c["attacker"]: c["ok"] for c in h2h.vox_verdict(rows)} == {
         "gim": True, "replay": True, "rnd_src": False}
+
+
+def test_committed_flagship_readings(monkeypatch):
+    """The port's flagship runs (one card, the CLI's defaults): seed 1 read at 5000
+    and 10000, seed 2 at 5000; the JAX run's columns, each run's arguments with its
+    record, the set's digest the glyph study's, and the bar's verdict as `PERF.md`
+    reports it (gim under its band at every reading, replay at 10000)."""
+    monkeypatch.chdir(REPO)
+    docs = REPO / h2h.FLAG_DOCS_DIR
+    rows = h2h.load_run_aucs(h2h.FLAG, str(docs))
+    for a in h2h.ATTACKERS:
+        assert sorted(rows[("port", 5000, a)]) == [(1, 1), (2, 1)]
+        assert sorted(rows[("port", 10000, a)]) == [(1, 1)]
+    for path in sorted(docs.glob("port_flag_s*_eval_*.csv")):
+        with open(path, newline="") as f, \
+                open(REPO / h2h.JAX_FLAG_DIR / "eval_step00005000.csv", newline="") as g:
+            assert next(csv.reader(f)) == next(csv.reader(g)), path.name
+    for seed, n_epochs in ((1, 26), (2, 13)):
+        args = json.loads((docs / f"port_flag_s{seed}_args.json").read_text())
+        assert (args["seed"], args["n_epochs"], args["save_every"], args["device_data"],
+                args["au_lr"], args["im_lr"], args["env_noise_mapping_lr"], args["img_size"],
+                args["style_dim"], args["batch_size"], args["compute_dtype"]) == (
+            seed, n_epochs, 5000, "auto", 1e-6, 1e-5, 1e-7, 32, 512, 128, "bfloat16")
+        run = args["study_run"]
+        assert (run["cards"], run["stopped"], run["card"]) == (
+            1, None, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert h2h.set_verdict(str(docs / "port_flag_set.json")).startswith("the glyph")
+    checks = h2h.flag_verdict(rows, h2h.flag_deltas(h2h.load_aucs(str(DOCS))))
+    assert sorted((c["step"], c["attacker"], c["seed"]) for c in checks if not c["ok"]) == [
+        (5000, "gim", 1), (5000, "gim", 2), (10000, "gim", 1), (10000, "replay", 1)]
+    assert len(checks) == 9
