@@ -160,9 +160,16 @@ VOX_CONFIG = ("--dataset_type", "voxceleb2", "--img_channels", "3", "--au_lr", "
 VOX_EXAMPLES_PER_CLASS = 20  # 93 steps an epoch, as the JAX run's 14879 steps in 160 epochs
 VOX_BAR_STEP = 2500
 JAX_RUN_CSV_NAME = re.compile(r"eval_step(\d+)\.csv$")
+JAX_CAL_CSV_NAME = re.compile(r"cal_eval_(\d+)\.csv$")
 
 FLAG_DOCS_DIR = "docs/flagship_head_to_head"
-JAX_FLAG_DIR = "docs/flag100k_hard"  # the JAX run's grids: eval_step<step:08d>.csv
+# the JAX package's flagship runs on the hard glyph set: the run of its current game
+# code (77b1e69..5d543c3, grids with the score moments: cal_eval_<step:08d>.csv and
+# scores_<step:08d>/), which the bar rests on, and the 100k-step run of 5752b10,
+# before dbb161f changed the bf16 arithmetic of the image step (eval_step<step:08d>.csv)
+JAX_FLAG_CAL_DIR = "docs/flag_cal"
+JAX_FLAG_DIR = "docs/flag100k_hard"
+FLAG_CALIBRATE_Q = 0.95  # the eval's --calibrate_q, as the flag_cal run's grids
 FLAG_BAR_STEPS = (5000, 10000)
 # the JAX glyph study's readings whose largest seed range is the flagship bar's delta
 FLAG_DELTA_STEPS = (4999, 10000)
@@ -419,7 +426,7 @@ class Game(NamedTuple):
     """One configuration of the port's image CLI held to one trained JAX run."""
     prefix: str  # of the CSVs and records in docs_dir
     docs_dir: str
-    jax_dir: str
+    jax_runs: tuple  # ((impl, directory, CSV name pattern), ...): the bar's run first
     make_set: str
     ext: str  # the set's image files
     ds_root: str
@@ -436,7 +443,8 @@ class Game(NamedTuple):
         return f"{self.prefix}_set.json"
 
 
-VOX = Game("port_hardvox", VOX_DOCS_DIR, JAX_VOX_DIR, MAKE_VOX_SET, "jpg",
+VOX = Game("port_hardvox", VOX_DOCS_DIR, (("jax", JAX_VOX_DIR, JAX_RUN_CSV_NAME),),
+           MAKE_VOX_SET, "jpg",
            "build/hard_vox64", "build/hard_vox_head_to_head", VOX_BAR_STEP, 64,
            VOX_EXAMPLES_PER_CLASS,
            VOX_CONFIG + ("--compute_dtype", "bfloat16", "--ds_n_examples_per_cls",
@@ -444,19 +452,34 @@ VOX = Game("port_hardvox", VOX_DOCS_DIR, JAX_VOX_DIR, MAKE_VOX_SET, "jpg",
            ("--device_data", "on"), ("--dataset_type", "voxceleb2", "--img_channels", "3"))
 # the CLI's defaults are the flagship config; on one card its loader stages the set
 # on the card ("auto"), as the JAX CLI's does
-FLAG = Game("port_flag", FLAG_DOCS_DIR, JAX_FLAG_DIR, MAKE_SET, "png",
+FLAG = Game("port_flag", FLAG_DOCS_DIR, (("jax", JAX_FLAG_CAL_DIR, JAX_CAL_CSV_NAME),
+                                         ("jax_pre", JAX_FLAG_DIR, JAX_RUN_CSV_NAME)),
+            MAKE_SET, "png",
             "build/hard_glyphs32", "build/flagship_head_to_head", FLAG_BAR_STEPS[-1], 32,
             FLAG_EXAMPLES_PER_CLASS, (), (), ())
-RUN_CSV_NAME = re.compile(r"(port_hardvox|port_flag)_s(\d+)(?:_cards(\d+))?_eval_(\d+)\.csv$")
+RUN_CSV_NAME = re.compile(
+    r"(port_hardvox|port_flag)_s(\d+)(?:_cards(\d+))?(_f32)?_eval_(\d+)\.csv$")
+# the port's runs in the CSVs' rows: the bf16 game, and the f32 game (``_f32`` files)
+PORT_IMPLS = ("port", "port_f32")
 
 
-def run_tag(seed: int, cards: int) -> str:
-    """A run's name in its files: the seed, and the cards when more than one."""
-    return f"s{seed}" + (f"_cards{cards}" if cards > 1 else "")
+def run_tag(seed: int, cards: int, compute_dtype=None) -> str:
+    """A run's name in its files: the seed, the cards when more than one, and
+    ``_f32`` for the f32 game."""
+    return (f"s{seed}" + (f"_cards{cards}" if cards > 1 else "")
+            + ("_f32" if compute_dtype == "float32" else ""))
 
 
-def run_csv_path(game: Game, csv_dir: str, seed: int, cards: int, step: int) -> str:
-    return os.path.join(csv_dir, f"{game.prefix}_{run_tag(seed, cards)}_eval_{step:08d}.csv")
+def run_csv_path(game: Game, csv_dir: str, seed: int, cards: int, step: int,
+                 compute_dtype=None) -> str:
+    return os.path.join(csv_dir, f"{game.prefix}_{run_tag(seed, cards, compute_dtype)}"
+                                 f"_eval_{step:08d}.csv")
+
+
+def scores_dir(csv_path_: str) -> str:
+    """The directory of a grid's raw scores beside its CSV: ``..._scores_<step>/``."""
+    head, name = os.path.split(csv_path_)
+    return os.path.join(head, name.replace("_eval_", "_scores_")[:-len(".csv")])
 
 
 def visible_cards(device: str) -> list:
@@ -565,35 +588,69 @@ def run_training(cmd: list, env: dict, exp: str, log_path: str, steps: list, on_
             "grid_marks": [[s, round(t - marks[0][1], 3)] for s, t in marks]}
 
 
+def eval_command(game: Game, exp: str, path: str, step: int, ds_root: str, device: str,
+                 img_size: int) -> list:
+    """The port's eval CLI on the checkpoint at ``step``: the val split, m1 n5 k5, at
+    the trained image size (``eval_hardvox_grid.sh``'s flags for vox); the flagship's
+    grid also writes the score moments at the calibrated threshold and the raw scores
+    (``scores_dir``), as the flag_cal run's grids did."""
+    cmd = [sys.executable, "-m", EVAL_MODULE, "--ds_root", ds_root,
+           "--img_size", str(img_size), *game.eval_flags,
+           "--m", "1", "--n", "5", "--k", "5",
+           "--gim_exp_dir", exp, "--specific_model", f"model_{step:08d}",
+           "--csv_file_path", path, "--device", device]
+    if game is FLAG:
+        cmd += ["--calibrate_q", str(FLAG_CALIBRATE_Q), "--dump_scores_dir", scores_dir(path)]
+    return cmd
+
+
 def eval_run(game: Game, exp: str, path: str, step: int, ds_root: str, device: str,
              img_size: int, card: str) -> None:
-    """The port's eval CLI on the checkpoint at ``step``, on one card: the val split,
-    m1 n5 k5, at the trained image size (``eval_hardvox_grid.sh``'s flags for vox)."""
+    """``eval_command`` on one card."""
     t0 = time.perf_counter()
-    subprocess.run([sys.executable, "-m", EVAL_MODULE, "--ds_root", ds_root,
-                    "--img_size", str(img_size), *game.eval_flags,
-                    "--m", "1", "--n", "5", "--k", "5",
-                    "--gim_exp_dir", exp, "--specific_model", f"model_{step:08d}",
-                    "--csv_file_path", path, "--device", device], check=True, cwd=REPO,
-                   env=dict(os.environ, CUDA_VISIBLE_DEVICES=card))
+    subprocess.run(eval_command(game, exp, path, step, ds_root, device, img_size),
+                   check=True, cwd=REPO, env=dict(os.environ, CUDA_VISIBLE_DEVICES=card))
     print(f"step {step}: {path} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def load_run_aucs(game: Game, *dirs) -> dict:
-    """{(impl, step, attacker): {run: auc}} of the JAX run's CSVs (run 0: its seed was
-    not recorded) and the port's ``<game.prefix>_`` CSVs in ``dirs``, whose run is
-    (seed, cards)."""
-    rows = defaultdict(dict)
-    for path in sorted(glob.glob(os.path.join(game.jax_dir, "*.csv"))):
-        m = JAX_RUN_CSV_NAME.search(path)
-        if m:
-            _read_aucs(path, rows, "jax", int(m.group(1)), 0)
+def run_csvs(game: Game, *dirs):
+    """(path, impl, step, run) of each JAX run's CSVs (run 0: their seeds were not
+    recorded) and of the port's ``<game.prefix>_`` CSVs in ``dirs``, whose run is
+    (seed, cards) and whose impl is "port" or, for the f32 game, "port_f32"."""
+    for impl, jax_dir, name in game.jax_runs:
+        for path in sorted(glob.glob(os.path.join(jax_dir, "*.csv"))):
+            m = name.search(os.path.basename(path))
+            if m:
+                yield path, impl, int(m.group(1)), 0
     for d in dirs:
         for path in sorted(glob.glob(os.path.join(d, "*.csv"))):
             m = RUN_CSV_NAME.search(os.path.basename(path))
             if m and m.group(1) == game.prefix:
-                _read_aucs(path, rows, "port", int(m.group(4)),
-                           (int(m.group(2)), int(m.group(3) or 1)))
+                yield (path, PORT_IMPLS[bool(m.group(4))], int(m.group(5)),
+                       (int(m.group(2)), int(m.group(3) or 1)))
+
+
+def load_run_aucs(game: Game, *dirs) -> dict:
+    """{(impl, step, attacker): {run: auc}} of ``run_csvs``."""
+    rows = defaultdict(dict)
+    for path, impl, step, run in run_csvs(game, *dirs):
+        _read_aucs(path, rows, impl, step, run)
+    return rows
+
+
+MOMENTS = ("score_real_mean", "score_real_std", "score_fake_mean", "score_fake_std")
+
+
+def load_run_moments(game: Game, *dirs) -> dict:
+    """{(impl, step, attacker): {run: (real mean, real std, fake mean, fake std)}} of
+    the GIM authenticator's scores, from the CSVs of ``run_csvs`` that have them
+    (grids written with ``--calibrate_q``)."""
+    rows = defaultdict(dict)
+    for path, impl, step, run in run_csvs(game, *dirs):
+        with open(path) as f:
+            for r in csv.DictReader(f):
+                if r["au_type"] == "gim" and r.get(MOMENTS[0]):
+                    rows[(impl, step, r["im_type"])][run] = tuple(float(r[k]) for k in MOMENTS)
     return rows
 
 
@@ -608,11 +665,15 @@ def _read_aucs(path: str, rows: dict, impl: str, step: int, run) -> None:
                 rows[(impl, step, r["im_type"])][run] = float(r["auc"])
 
 
+JAX_LABELS = {"jax": "JAX", "jax_pre": "JAX pre-dbb161f"}
+
+
 def run_label(impl: str, run) -> str:
-    if impl == "jax":
-        return "JAX"
+    if impl in JAX_LABELS:
+        return JAX_LABELS[impl]
     seed, cards = run
-    return f"port s{seed}, {cards} card{'s' if cards > 1 else ''}"
+    return (f"port{' f32' if impl == 'port_f32' else ''} s{seed}, "
+            f"{cards} card{'s' if cards > 1 else ''}")
 
 
 def run_table(rows: dict) -> list:
@@ -649,18 +710,37 @@ def flag_deltas(rows: dict) -> dict:
         for a in ATTACKERS}
 
 
-def flag_verdict(rows: dict, deltas: dict) -> list:
-    """Each port run's AUC at each of ``FLAG_BAR_STEPS`` inside the JAX run's reading
-    at that step +- the attacker's delta (the upper edge at most 1)."""
+def flag_verdict(rows: dict, deltas: dict, ref: str = "jax") -> list:
+    """Each port run's AUC (bf16 and f32 games) at each of ``FLAG_BAR_STEPS`` inside
+    the reading of the JAX run ``ref`` ("jax": flag_cal, the package's current code;
+    "jax_pre": flag100k_hard) at that step +- the attacker's delta (the upper edge at
+    most 1)."""
     out = []
     for step in FLAG_BAR_STEPS:
         for a in ATTACKERS:
-            jax = rows.get(("jax", step, a), {}).get(0)
-            for (seed, cards), auc in sorted(rows.get(("port", step, a), {}).items()):
-                lo, hi = jax - deltas[a], min(1.0, jax + deltas[a])
-                out.append({"step": step, "attacker": a, "seed": seed, "cards": cards,
-                            "port": auc, "jax": jax, "lo": lo, "hi": hi,
-                            "ok": bool(lo <= auc <= hi)})
+            jax = rows.get((ref, step, a), {}).get(0)
+            for impl in PORT_IMPLS:
+                for (seed, cards), auc in sorted(rows.get((impl, step, a), {}).items()):
+                    lo, hi = jax - deltas[a], min(1.0, jax + deltas[a])
+                    out.append({"step": step, "attacker": a, "seed": seed, "cards": cards,
+                                "impl": impl, "port": auc, "jax": jax, "lo": lo, "hi": hi,
+                                "ok": bool(lo <= auc <= hi)})
+    return out
+
+
+def moments_table(moments: dict) -> list:
+    """Markdown lines: each step and run, the GIM authenticator's real and fake score
+    mean +- std against each attacker (real: the same for every attacker)."""
+    runs = sorted({(step, impl, run) for (impl, step, _), v in moments.items() for run in v},
+                  key=lambda x: (x[0], x[1], repr(x[2])))
+    out = ["| step | run | real | " + " | ".join(f"{a} fake" for a in ATTACKERS) + " |",
+           "|---|---|---|" + "---|" * len(ATTACKERS)]
+    for step, impl, run in runs:
+        cells = [moments.get((impl, step, a), {}).get(run) for a in ATTACKERS]
+        real = next((c for c in cells if c), None)
+        out.append(f"| {step} | {run_label(impl, run)} | {real[0]:+.4f} ± {real[1]:.4f} | "
+                   + " | ".join("—" if c is None else f"{c[2]:+.4f} ± {c[3]:.4f}"
+                                for c in cells) + " |")
     return out
 
 
@@ -688,29 +768,39 @@ def set_verdict(record: str) -> str:
     return f"{'the' if mine == its else 'NOT the'} glyph study's set ({study})"
 
 
-def game_report(game: Game, *dirs) -> bool:
-    """Print the table, each run's record and the bar of the game's CSVs in ``dirs``;
-    True when every reading of every port run at the bar's steps meets it."""
+def game_report(game: Game, *dirs, ref: str = "jax") -> bool:
+    """Print the table, each run's record and the bar of the game's CSVs in ``dirs``
+    (the flagship's against each JAX run, and the score moments beside flag_cal's);
+    True when every reading of every port run at the bar's steps meets the bar of
+    the JAX run ``ref`` (the flagship's "jax_pre": flag100k_hard's)."""
     dirs = dict.fromkeys(os.path.normpath(d) for d in dirs)  # each once, in order
     rows = load_run_aucs(game, *dirs)
     print("\n".join(run_table(rows)))
     print_runs(game, *dirs)
     if game is VOX:
-        checks = vox_verdict(rows)
-        lines = [f"bar step {c['step']} {c['attacker']} {run_label('port', (c['seed'], c['cards']))}: "
-                 f"port {c['port']:.4f}, JAX [{c['jax_min']:.4f}, {c['jax_max']:.4f}]"
-                 for c in checks]
+        checks = {"jax": vox_verdict(rows)}
+        lines = {"jax": [
+            f"bar step {c['step']} {c['attacker']} {run_label('port', (c['seed'], c['cards']))}: "
+            f"port {c['port']:.4f}, JAX [{c['jax_min']:.4f}, {c['jax_max']:.4f}]"
+            for c in checks["jax"]]}
     else:
+        moments = load_run_moments(game, *dirs)
+        if moments:
+            print("GIM authenticator's scores, mean ± std:")
+            print("\n".join(moments_table(moments)))
         deltas = flag_deltas(load_aucs(DOCS_DIR))
-        checks = flag_verdict(rows, deltas)
-        lines = [f"bar step {c['step']} {c['attacker']} {run_label('port', (c['seed'], c['cards']))}: "
-                 f"port {c['port']:.4f}, JAX {c['jax']:.4f} +- {deltas[c['attacker']]:.3f} = "
-                 f"[{c['lo']:.4f}, {c['hi']:.4f}]" for c in checks]
-    for line, c in zip(lines, checks):
-        print(f"{line}: {'inside' if c['ok'] else 'MISSED'}")
-    met = bool(checks) and all(c["ok"] for c in checks)
-    print(f"bar: {'met' if met else 'missed or not read'} at {len(checks)} readings")
-    return met
+        checks = {r: flag_verdict(rows, deltas, r) for r, _, _ in game.jax_runs}
+        lines = {r: [f"bar step {c['step']} {c['attacker']} "
+                     f"{run_label(c['impl'], (c['seed'], c['cards']))}: port {c['port']:.4f}, "
+                     f"{JAX_LABELS[r]} {c['jax']:.4f} +- {deltas[c['attacker']]:.3f} = "
+                     f"[{c['lo']:.4f}, {c['hi']:.4f}]" for c in cs] for r, cs in checks.items()}
+    for r, cs in checks.items():
+        for line, c in zip(lines[r], cs):
+            print(f"{line}: {'inside' if c['ok'] else 'MISSED'}")
+        met = bool(cs) and all(c["ok"] for c in cs)
+        print(f"bar ({JAX_LABELS[r]}): {'met' if met else 'missed or not read'} at "
+              f"{len(cs)} readings")
+    return bool(checks[ref]) and all(c["ok"] for c in checks[ref])
 
 
 def main_game(game: Game, args) -> None:
@@ -727,6 +817,8 @@ def main_game(game: Game, args) -> None:
         print(f"set: {set_verdict(os.path.join(args.csv_dir, game.set_record))}", flush=True)
     sizes = ["--img_size", str(args.img_size), "--style_dim", str(args.style_dim),
              "--batch_size", str(args.batch_size)]
+    if args.compute_dtype:
+        sizes += ["--compute_dtype", args.compute_dtype]
     n_train = len(glob.glob(os.path.join(args.ds_root, "train", "*", "*")))  # classes
     per_epoch = n_train * game.examples_per_class // args.batch_size
     # the loop numbers its steps from 0: the epochs run past step n_steps
@@ -735,7 +827,7 @@ def main_game(game: Game, args) -> None:
     steps = args.eval_steps or list(range(args.save_every, args.n_steps + 1, args.save_every))
     os.makedirs(args.outdir, exist_ok=True)
     for seed in args.seeds:
-        tag = run_tag(seed, args.cards)
+        tag = run_tag(seed, args.cards, args.compute_dtype)
         exp = os.path.join(args.outdir, "seed_" + tag[1:])
         shutil.rmtree(exp, ignore_errors=True)  # the grids' times are this run's
         cmd, env = train_command(game, seed, args.ds_root, exp, sizes, n_epochs,
@@ -745,8 +837,9 @@ def main_game(game: Game, args) -> None:
               f"CUDA_VISIBLE_DEVICES={env.get('CUDA_VISIBLE_DEVICES', '')})", flush=True)
 
         def score(step, exp=exp, seed=seed):
-            eval_run(game, exp, run_csv_path(game, args.csv_dir, seed, args.cards, step), step,
-                     args.ds_root, args.device, args.img_size, visible[0])
+            eval_run(game, exp, run_csv_path(game, args.csv_dir, seed, args.cards, step,
+                                             args.compute_dtype),
+                     step, args.ds_root, args.device, args.img_size, visible[0])
 
         run = run_training(cmd, env, exp, exp + ".log", steps,
                            score, args.min_steps_per_sec, args.deadline)
@@ -798,6 +891,9 @@ def main(argv=None) -> None:
                     help="--vox, --flagship: default 64 and 32")
     ap.add_argument("--style_dim", type=int, default=512, help="--vox, --flagship")
     ap.add_argument("--batch_size", type=int, default=128, help="--vox, --flagship")
+    ap.add_argument("--compute_dtype", default=None, choices=["bfloat16", "float32"],
+                    help="--flagship: the CLI's --compute_dtype (default: its bfloat16); "
+                         "an f32 run's files are named ..._s<seed>[_cards<N>]_f32_...")
     ap.add_argument("--cudnn_benchmark", action="store_true",
                     help="--vox, --flagship: the CLI's --cudnn_benchmark 1 (cuDNN times its "
                          "conv algorithms)")

@@ -3,6 +3,7 @@
     python scripts/torch_profile_step.py [--config flagship|vox|gaussian|legacy]
                                          [--warm N] [--steps N] [--trace PATH.json.gz]
                                          [--time] [--cudnn_benchmark]
+                                         [--compute_dtype bfloat16|float32]
 
 Builds the port's game state from a seed at the flagship config (B=128,
 32x32x1, style 512, bf16), the VoxCeleb config (64x64x3, R1 with
@@ -110,6 +111,8 @@ def main() -> None:
     ap.add_argument("--trace", default=None, help="write the Chrome trace here (.json.gz)")
     ap.add_argument("--time", action="store_true", help="time the steps, no profiler")
     ap.add_argument("--cudnn_benchmark", action="store_true")
+    ap.add_argument("--compute_dtype", default=None, choices=["bfloat16", "float32"],
+                    help="the image configs' compute dtype (default: the config's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU: torch.cuda.is_available() is false")
@@ -141,7 +144,8 @@ def main() -> None:
         def step():
             tg.train_step(state)
     else:
-        cfg = ImageGameConfig(seed=args.seed, **CONFIGS[args.config])
+        dtype = {"compute_dtype": args.compute_dtype} if args.compute_dtype else {}
+        cfg = ImageGameConfig(seed=args.seed, **CONFIGS[args.config], **dtype)
         rng = np.random.default_rng(args.seed)
         batches = [
             {key: torch.from_numpy(rng.integers(
@@ -164,7 +168,8 @@ def main() -> None:
         torch.cuda.synchronize()
         s = (time.perf_counter() - t0) / args.steps
         card = subprocess.run(SMI, capture_output=True, text=True).stdout.strip()
-        print(f"{args.config}: {args.steps} steps after {args.warm}, cudnn.benchmark "
+        print(f"{args.config} ({args.compute_dtype or 'its dtype'}): "
+              f"{args.steps} steps after {args.warm}, cudnn.benchmark "
               f"{args.cudnn_benchmark}: {s * 1e3:.2f} ms/step, {1 / s:.4f} steps/s, peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
         return

@@ -348,8 +348,8 @@ def flag_checks(tmp_path, aucs_at: dict) -> tuple:
     for step, aucs in aucs_at.items():
         write_port_csv(tmp_path / f"port_flag_s1_eval_{step:08d}.csv", aucs)
     rows = h2h.load_run_aucs(h2h.FLAG, str(tmp_path))
-    return (h2h.flag_verdict(rows, h2h.flag_deltas(h2h.load_aucs(str(DOCS)))),
-            h2h.game_report(h2h.FLAG, str(tmp_path)))
+    return (h2h.flag_verdict(rows, h2h.flag_deltas(h2h.load_aucs(str(DOCS))), "jax_pre"),
+            h2h.game_report(h2h.FLAG, str(tmp_path), ref="jax_pre"))
 
 
 def test_flag_deltas_and_bands_of_the_committed_csvs(tmp_path, monkeypatch):
@@ -508,11 +508,14 @@ def test_flagship_rehearsal_on_the_cpu(tmp_path, monkeypatch, cards):
               "16", "--style_dim", "32", "--batch_size", "32", "--cards", str(cards)])
     tag = "s1" if cards == 1 else "s1_cards2"
     grid = f"port_flag_{tag}_eval_00000002.csv"
+    scores = f"port_flag_{tag}_scores_00000002"
     assert sorted(p.name for p in csvs.iterdir()) == sorted([
-        f"port_flag_{tag}_args.json", grid, "port_flag_set.json"])
+        f"port_flag_{tag}_args.json", grid, scores, "port_flag_set.json"])
+    assert sorted(p.name for p in (csvs / scores).iterdir()) == [
+        f"scores_gim_{im}.npz" for im in h2h.ATTACKERS]
     with open(csvs / grid, newline="") as f:
         lines = list(csv.reader(f))
-    with open(REPO / h2h.JAX_FLAG_DIR / "eval_step00005000.csv", newline="") as f:
+    with open(REPO / h2h.JAX_FLAG_CAL_DIR / "cal_eval_00005000.csv", newline="") as f:
         assert lines[0] == next(csv.reader(f))
     assert [line[1:3] for line in lines[1:]] == [["gim", im] for im in h2h.ATTACKERS]
     assert [line[5:8] for line in lines[1:]] == [["1", "5", "5"]] * 3
@@ -586,7 +589,12 @@ def test_committed_flagship_readings(monkeypatch):
         assert (run["cards"], run["stopped"], run["card"]) == (
             1, None, "NVIDIA H100 80GB HBM3, 700.00 W")
     assert h2h.set_verdict(str(docs / "port_flag_set.json")).startswith("the glyph")
-    checks = h2h.flag_verdict(rows, h2h.flag_deltas(h2h.load_aucs(str(DOCS))))
-    assert sorted((c["step"], c["attacker"], c["seed"]) for c in checks if not c["ok"]) == [
-        (5000, "gim", 1), (5000, "gim", 2), (10000, "gim", 1), (10000, "replay", 1)]
-    assert len(checks) == 9
+    deltas = h2h.flag_deltas(h2h.load_aucs(str(DOCS)))
+    missed = {ref: sorted((c["step"], c["attacker"], c["seed"])
+                          for c in h2h.flag_verdict(rows, deltas, ref) if not c["ok"])
+              for ref in ("jax", "jax_pre")}
+    assert missed == {
+        "jax": [(5000, "gim", 2), (10000, "gim", 1), (10000, "replay", 1)],
+        "jax_pre": [(5000, "gim", 1), (5000, "gim", 2), (10000, "gim", 1),
+                    (10000, "replay", 1)]}
+    assert len(h2h.flag_verdict(rows, deltas)) == 9
