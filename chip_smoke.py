@@ -1094,6 +1094,24 @@ def run_train(seed: int, n_steps: int, counters, use_img_att: bool = False) -> t
     return launches, step_s
 
 
+def check_noise_draw(seed: int) -> None:
+    """The impersonator's bf16 noise on the card takes the values the CPU draw takes:
+    ``jax.random.normal``'s 128 bf16 values (``utils/rng.py:normal``)."""
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.rng import BF16_LEVELS, normal
+
+    def values(device):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        z = normal((1 << 16,), gen, device, torch.bfloat16)
+        return torch.unique(z.float().cpu())
+
+    card, cpu = values("cuda"), values("cpu")
+    if len(cpu) != BF16_LEVELS or not torch.equal(card, cpu):
+        fail(f"bf16 noise: {len(card)} values on the card, {len(cpu)} on the CPU, "
+             f"equal {torch.equal(card, cpu) if len(card) == len(cpu) else False}")
+    print(f"  bf16 noise draw: the card's {len(card)} values are the CPU's "
+          f"[{card.min().item():.6f}, {card.max().item():.6f}], mean {card.mean().item():.4f}")
+
+
 def check_train_launches(what: str, launches: dict, n_steps: int) -> None:
     """Fail unless ``n_steps`` flagship steps launched each kernel its per-step count."""
     print(f"  layout copies in front of the AdaIN kernels: {launches.pop('adain_nhwc_copy')}")
@@ -2832,6 +2850,7 @@ def main() -> None:
     print(f"[6/{N_PHASES}] train: {args.steps} flagship steps", flush=True)
     launches, flagship_step_s = run_train(args.seed, args.steps, counters)
     check_train_launches("train", launches, args.steps)
+    check_noise_draw(args.seed)
     for name, n in launches.items():
         results[name]["launches"] = n
 

@@ -37,6 +37,7 @@ from optimalstrategiesagainstgenerativeattacks_torch.ops.image_ops import (
     to_nchw,
     to_nhwc,
 )
+from optimalstrategiesagainstgenerativeattacks_torch.utils.rng import normal
 
 
 MIN_CHANNELS = 64  # narrowest conv stage of every encoder and decoder
@@ -301,8 +302,7 @@ class GIMFaceImpersonator(nn.Module):
         env = env_e.reshape(b, m, -1).mean(dim=1)
 
         if z is None:
-            z = torch.randn((b, n, self.style_dim), generator=generator,
-                            device=leaked_sample.device, dtype=compute_dtype)
+            z = normal((b, n, self.style_dim), generator, leaked_sample.device, compute_dtype)
         noise = self.env_noise_mapper(z)
         if remove_noise_mean:
             noise = noise - noise.mean(dim=1, keepdim=True)

@@ -64,6 +64,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from optimalstrategiesagainstgenerativeattacks_torch.utils.rng import normal
+
 _PKG_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -349,12 +351,12 @@ def randn_slice(shape: Sequence[int], generator: Optional[torch.Generator], devi
     [data size * shape[0], ...] from ``generator``, at its data index: every
     rank draws the whole, so the generators stay in step, the slices
     concatenate to one process's draw, and a model group's ranks hold the
-    same rows.  Without a group, the plain ``torch.randn(shape)``."""
+    same rows.  Without a group, the plain draw of ``shape``.  The draw is
+    ``utils/rng.py:normal``'s: ``jax.random.normal``'s distribution in ``dtype``."""
     world = data_axis().size
     if world == 1:
-        return torch.randn(tuple(shape), generator=generator, device=device, dtype=dtype)
-    full = torch.randn((world * shape[0], *shape[1:]), generator=generator, device=device,
-                       dtype=dtype)
+        return normal(shape, generator, device, dtype)
+    full = normal((world * shape[0], *shape[1:]), generator, device, dtype)
     lo, hi = shard_bounds(len(full), world=world)
     return full[lo:hi]
 

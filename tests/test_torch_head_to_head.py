@@ -10,14 +10,13 @@
   against scipy on the same readings, and the readings it pools from the
   committed CSVs.
 * The set's digest reads pixels, not PNG bytes.
-* A rehearsal of the whole script at a tiny size: a few classes of 16 px from
-  ``scripts/make_hard_glyph_ds.py``, 3 training steps with ``--device cpu``, the
-  eval grid of two checkpoints, the CSVs' names and columns (the JAX CSVs'),
-  each seed's ``args.json`` and the set's record.
-* ``--vox`` and ``--flagship`` at a tiny size on the CPU (the flagship also over
-  two gloo ranks), the flagship bar's deltas and bands from the committed CSVs
-  and its verdict on each side of every band edge, the commands ``--cards``
-  builds, and ``run_training``'s scoring, steps/s and stops on a stand-in CLI.
+* The flagship bar's deltas and bands from the committed CSVs and its verdict on
+  each side of every band edge, the commands ``--cards`` builds, and
+  ``run_training``'s scoring, steps/s and stops on a stand-in CLI.
+
+The rehearsals of the whole script at a tiny size are in
+``test_torch_head_to_head_study.py`` (the glyph study) and
+``test_torch_head_to_head_rehearsals.py`` (``--vox`` and ``--flagship``).
 """
 
 from __future__ import annotations
@@ -27,7 +26,6 @@ import importlib.util
 import json
 import os
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -35,26 +33,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-REPO = Path(__file__).resolve().parents[1]
-DOCS = REPO / "docs" / "hard_head_to_head"
-SPEC = importlib.util.spec_from_file_location(
-    "torch_hard_head_to_head", REPO / "scripts" / "torch_hard_head_to_head.py")
-h2h = importlib.util.module_from_spec(SPEC)
-SPEC.loader.exec_module(h2h)
-
-
-def jax_header() -> list:
-    with open(DOCS / "jax_hard_s2_eval_00004999.csv", newline="") as f:
-        return next(csv.reader(f))
-
-
-def write_port_csv(path: Path, aucs: dict) -> None:
-    """A CSV in the eval CLI's layout with the given AUC per attacker."""
-    with open(path, "w", newline="") as f:
-        w = csv.writer(f, lineterminator="\n")
-        w.writerow(jax_header())
-        for i, (im, auc) in enumerate(aucs.items()):
-            w.writerow([i, "gim", im, "ds", "exp", 1, 5, 5, 0.5, 0.5, 0.5, auc])
+from head_to_head_support import DOCS, REPO, h2h, jax_header, write_port_csv
 
 
 def recorded() -> dict:
@@ -191,38 +170,6 @@ def test_set_digest_reads_pixels_not_png_bytes(tmp_path):
     assert h2h.set_digest(str(root))[0] != first[0]
 
 
-def test_study_rehearsal_on_the_cpu(tmp_path, monkeypatch):
-    ds = tmp_path / "ds"
-    subprocess.run([sys.executable, h2h.MAKE_SET, "--out", str(ds), "--n_alphabets", "2",
-                    "--n_chars", "3", "--val_alphabets", "1", "--imgs_per_class", "12",
-                    "--img_size", "16"], check=True, cwd=REPO, capture_output=True)
-    assert not h2h.build_set(str(ds))  # a set is there: nothing to build
-    out, csvs = tmp_path / "runs", tmp_path / "csv"
-    monkeypatch.chdir(REPO)
-    h2h.main(["--device", "cpu", "--ds_root", str(ds), "--outdir", str(out), "--csv_dir",
-                 str(csvs), "--seeds", "2", "--n_steps", "3", "--save_every", "2",
-                 "--eval_steps", "2", "3", "800"])
-    assert sorted(p.name for p in csvs.iterdir()) == [
-        "port_hard_s2_args.json", "port_hard_s2_eval_00000002.csv",
-        "port_hard_s2_eval_00000003.csv", "port_hard_set.json"]
-    for step in (2, 3):
-        with open(csvs / f"port_hard_s2_eval_{step:08d}.csv", newline="") as f:
-            lines = list(csv.reader(f))
-        assert lines[0] == jax_header()
-        assert [line[1:3] for line in lines[1:]] == [["gim", im] for im in h2h.ATTACKERS]
-        assert all(0.0 <= float(line[-1]) <= 1.0 for line in lines[1:])
-        assert all(line[4] == str(out / "seed_2") for line in lines[1:])
-    args = json.loads((csvs / "port_hard_s2_args.json").read_text())
-    assert (args["seed"], args["n_steps"], args["img_size"], args["style_dim"],
-            args["batch_size"], args["compute_dtype"]) == (2, 3, 16, 64, 16, "bfloat16")
-    record = json.loads((csvs / "port_hard_set.json").read_text())
-    assert record["command"] == ["python", h2h.MAKE_SET, "--out", str(ds)]
-    assert (record["sha256_paths_and_pixels"], record["images"]) == h2h.set_digest(str(ds))
-    assert record["images"] == 2 * 3 * 12
-    assert sorted(p.name for p in (out / "seed_2" / "ckpts").iterdir()) == [
-        "model_00000002", "model_00000003"]
-
-
 @pytest.mark.parametrize("script", ["torch_hard_head_to_head.py", "torch_bf16_parts.py"])
 def test_study_scripts_import_no_jax(script):
     """Both run on the card host, which has no JAX."""
@@ -281,57 +228,6 @@ def test_bf16_parts_rounds_the_named_sites_and_restores_the_blocks():
     with parts.rounded_sites(["up_sums"]):
         assert dtypes() == (torch.float32, torch.bfloat16, True)
     assert dtypes() == (torch.float32, torch.float32, True)
-
-
-@pytest.mark.parametrize("n_steps,cudnn_benchmark", [(3, False), (5, True)])
-def test_vox_rehearsal_on_the_cpu(tmp_path, monkeypatch, n_steps, cudnn_benchmark):
-    """The --vox mode at a tiny size: a few identities of 16 px from
-    ``scripts/make_hard_vox_ds.py`` (5 steps an epoch), the port's CLI for
-    ``n_steps`` steps (on to the epoch's end; 5 ends an epoch, where the loop,
-    which numbers its steps from 0, would stop one short), the eval CLI's grid of
-    the checkpoint at ``n_steps``, and ``--report`` over the committed CSVs with
-    the bar's verdict."""
-    ds = tmp_path / "ds"
-    subprocess.run([sys.executable, h2h.MAKE_VOX_SET, "--out", str(ds), "--n_identities", "4",
-                    "--val_identities", "2", "--videos_per_identity", "2",
-                    "--frames_per_video", "12", "--img_size", "16"],
-                   check=True, cwd=REPO, capture_output=True)
-    out, csvs = tmp_path / "runs", tmp_path / "csv"
-    monkeypatch.chdir(REPO)
-    h2h.main(["--vox", "--device", "cpu", "--ds_root", str(ds), "--outdir", str(out),
-              "--csv_dir", str(csvs), "--n_steps", str(n_steps), "--img_size", "16",
-              "--style_dim", "32", "--batch_size", "16"]
-             + (["--cudnn_benchmark"] if cudnn_benchmark else []))
-    grid = f"port_hardvox_s1_eval_{n_steps:08d}.csv"
-    assert sorted(p.name for p in csvs.iterdir()) == [
-        "port_hardvox_s1_args.json", grid, "port_hardvox_set.json"]
-    with open(csvs / grid, newline="") as f:
-        lines = list(csv.reader(f))
-    with open(REPO / h2h.JAX_VOX_DIR / "eval_step00002500.csv", newline="") as f:
-        assert lines[0] == next(csv.reader(f))
-    assert [line[1:3] for line in lines[1:]] == [["gim", im] for im in h2h.ATTACKERS]
-    assert all(0.0 <= float(line[-1]) <= 1.0 for line in lines[1:])
-    args = json.loads((csvs / "port_hardvox_s1_args.json").read_text())
-    assert (args["dataset_type"], args["img_channels"], args["reg_param"], args["au_lr"],
-            args["im_lr"], args["env_noise_mapping_lr"], args["compute_dtype"],
-            args["device_data"], args["seed"], args["cudnn_benchmark"]) == (
-        "voxceleb2", 3, 10.0, 1e-4, 1e-4, 1e-6, "bfloat16", "on", 1, cudnn_benchmark)
-    assert args["ds_n_examples_per_cls"] * 2 * 2 // 16 == 5  # steps an epoch
-    record = json.loads((csvs / "port_hardvox_set.json").read_text())
-    assert (record["sha256_paths_and_pixels"], record["images"]) == h2h.set_digest(str(ds), "jpg")
-    assert record["images"] == 4 * 2 * 12
-    assert f"model_{n_steps:08d}" in {p.name for p in (out / "seed_1" / "ckpts").iterdir()}
-    # the bar: the port's reading at step 2500 against the JAX run's six
-    rows = h2h.load_vox_aucs(str(csvs))
-    assert {k[1] for k in rows if k[0] == "jax"} == {2500, 5000, 7500, 10000, 12500, 14879}
-    assert h2h.vox_verdict(rows) == []  # no port reading at step 2500
-    write_port_csv(tmp_path / "port_hardvox_s1_eval_00002500.csv",
-                   {"gim": 0.99, "replay": 0.99, "rnd_src": 0.6})
-    checks = h2h.vox_verdict(h2h.load_vox_aucs(str(tmp_path)))
-    assert {c["attacker"]: c["ok"] for c in checks} == {
-        "gim": True, "replay": False, "rnd_src": True}  # replay under the JAX run's 0.9935
-    assert round(checks[1]["jax_min"], 4) == 0.9935
-    h2h.main(["--vox", "--report", "--csv_dir", str(tmp_path)])
 
 
 # the flagship bar's bands, written before any run of the port at this config:
@@ -489,56 +385,6 @@ def test_run_training_scores_checkpoints_and_stops_slow_runs(tmp_path, case):
         assert gone(child)
 
 
-@pytest.mark.parametrize("cards", [1, 2])
-def test_flagship_rehearsal_on_the_cpu(tmp_path, monkeypatch, cards):
-    """The --flagship mode at a tiny size: a few glyph classes of 16 px, the port's
-    CLI at its defaults but the sizes (100 episodes a class: 9 steps an epoch at
-    B=32) to a checkpoint at ``--n_steps``, scored by the eval CLI as it lands;
-    with 2 cards two CPU ranks over gloo and the host loader.  The set's record,
-    its verdict against the glyph study's, the CSVs' names and columns (the JAX
-    run's), the copied arguments with the run's record."""
-    ds = tmp_path / "ds"
-    subprocess.run([sys.executable, h2h.MAKE_SET, "--out", str(ds), "--n_alphabets", "2",
-                    "--n_chars", "3", "--val_alphabets", "1", "--imgs_per_class", "12",
-                    "--img_size", "16"], check=True, cwd=REPO, capture_output=True)
-    out, csvs = tmp_path / "runs", tmp_path / "csv"
-    monkeypatch.chdir(REPO)
-    h2h.main(["--flagship", "--device", "cpu", "--ds_root", str(ds), "--outdir", str(out),
-              "--csv_dir", str(csvs), "--n_steps", "2", "--save_every", "2", "--img_size",
-              "16", "--style_dim", "32", "--batch_size", "32", "--cards", str(cards)])
-    tag = "s1" if cards == 1 else "s1_cards2"
-    grid = f"port_flag_{tag}_eval_00000002.csv"
-    scores = f"port_flag_{tag}_scores_00000002"
-    assert sorted(p.name for p in csvs.iterdir()) == sorted([
-        f"port_flag_{tag}_args.json", grid, scores, "port_flag_set.json"])
-    assert sorted(p.name for p in (csvs / scores).iterdir()) == [
-        f"scores_gim_{im}.npz" for im in h2h.ATTACKERS]
-    with open(csvs / grid, newline="") as f:
-        lines = list(csv.reader(f))
-    with open(REPO / h2h.JAX_FLAG_CAL_DIR / "cal_eval_00005000.csv", newline="") as f:
-        assert lines[0] == next(csv.reader(f))
-    assert [line[1:3] for line in lines[1:]] == [["gim", im] for im in h2h.ATTACKERS]
-    assert [line[5:8] for line in lines[1:]] == [["1", "5", "5"]] * 3
-    assert all(0.0 <= float(line[-1]) <= 1.0 for line in lines[1:])
-    args = json.loads((csvs / f"port_flag_{tag}_args.json").read_text())
-    assert (args["dataset_type"], args["img_channels"], args["reg_param"], args["au_lr"],
-            args["im_lr"], args["env_noise_mapping_lr"], args["compute_dtype"],
-            args["ds_n_examples_per_cls"], args["milestones"], args["seed"],
-            args["device_data"]) == (
-        "omniglot", 1, 0.0, 1e-6, 1e-5, 1e-7, "bfloat16", 100, [], 1,
-        "auto" if cards == 1 else "off")
-    assert (args["study_run"]["cards"], args["study_run"]["card"],
-            args["study_run"]["stopped"]) == (cards, "cpu", None)
-    assert args["study_run"]["grid_marks"][0] == [0, 0.0]
-    record = json.loads((csvs / "port_flag_set.json").read_text())
-    assert record["command"] == ["python", h2h.MAKE_SET, "--out", str(ds)]
-    assert (record["sha256_paths_and_pixels"], record["images"]) == h2h.set_digest(str(ds))
-    assert h2h.set_verdict(str(csvs / "port_flag_set.json")).startswith("NOT the")
-    exp = out / ("seed_1" if cards == 1 else "seed_1_cards2")
-    assert "model_00000002" in {p.name for p in (exp / "ckpts").iterdir()}
-    assert not h2h.game_report(h2h.FLAG, str(csvs))  # no reading at a bar step
-
-
 def test_committed_vox_reading_at_the_bar_step(monkeypatch):
     """The port's VoxCeleb-shaped run to step 2500 (seed 1, one card, the device
     loader, cuDNN's timed algorithms): the JAX CSVs' columns, a reading of each
@@ -598,3 +444,129 @@ def test_committed_flagship_readings(monkeypatch):
         "jax_pre": [(5000, "gim", 1), (5000, "gim", 2), (10000, "gim", 1),
                     (10000, "replay", 1)]}
     assert len(h2h.flag_verdict(rows, deltas)) == 9
+
+
+# the flagship bar's bands on the JAX run of the package's current game code
+# (docs/flag_cal/): its reading at the step +- delta, the upper edge at most 1
+FLAG_CAL_BANDS = {
+    (5000, "gim"): (0.3761, 0.6001), (5000, "replay"): (0.95, 1.0),
+    (5000, "rnd_src"): (0.4176, 0.7936), (10000, "gim"): (0.8496, 1.0),
+    (10000, "replay"): (0.9498, 1.0), (10000, "rnd_src"): (0.5970, 0.9730)}
+
+
+def write_cal_csv(path: Path, aucs: dict, moments: dict) -> None:
+    """A CSV in the layout of the eval CLI with ``--calibrate_q`` (the flag_cal run's
+    columns) with the given AUC and (real mean, real std, fake mean, fake std) per
+    attacker."""
+    with open(REPO / h2h.JAX_FLAG_CAL_DIR / "cal_eval_00005000.csv", newline="") as f:
+        header = next(csv.reader(f))
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(header)
+        for i, (im, auc) in enumerate(aucs.items()):
+            row = dict.fromkeys(header, 0.5)
+            row.update({"": i, "au_type": "gim", "im_type": im, "ds_root": "ds",
+                        "gim_exp_dir": "exp", "m": 1, "n": 5, "k": 5, "auc": auc})
+            row.update(zip(h2h.MOMENTS, moments[im]))
+            w.writerow([row[c] for c in header])
+
+
+def test_flag_cal_bands_and_moments_of_the_committed_csvs(tmp_path, monkeypatch):
+    """The bar on the flag_cal run: its readings at 5000 and 10000 +- delta; its score
+    moments read from its grids (JAX at 10000: real +0.4530 +- 0.3024, gim fake
+    -0.7372 +- 0.6960)."""
+    monkeypatch.chdir(REPO)
+    for step in h2h.FLAG_BAR_STEPS:
+        write_port_csv(tmp_path / f"port_flag_s1_eval_{step:08d}.csv",
+                       {a: 0.9 for a in h2h.ATTACKERS})
+    rows = h2h.load_run_aucs(h2h.FLAG, str(tmp_path))
+    checks = h2h.flag_verdict(rows, h2h.flag_deltas(h2h.load_aucs(str(DOCS))))
+    assert {(c["step"], c["attacker"]): (round(c["lo"], 4), round(c["hi"], 4))
+            for c in checks} == FLAG_CAL_BANDS
+    moments = h2h.load_run_moments(h2h.FLAG)
+    assert {k[1] for k in moments if k[0] == "jax"} == {0, *range(5000, 66000, 5000), 66000}
+    assert not any(k[0] == "jax_pre" for k in moments)  # flag100k_hard has no moments
+    real_mean, real_std, fake_mean, fake_std = moments[("jax", 10000, "gim")][0]
+    assert (round(real_mean, 4), round(real_std, 4), round(fake_mean, 4),
+            round(fake_std, 4)) == (0.4530, 0.3024, -0.7372, 0.6960)
+
+
+@pytest.mark.parametrize("side", ["inside", "outside"])
+@pytest.mark.parametrize("edge", ["lo", "hi"])
+@pytest.mark.parametrize("attacker", h2h.ATTACKERS)
+@pytest.mark.parametrize("step", h2h.FLAG_BAR_STEPS)
+def test_flag_cal_bar_on_synthetic_port_csvs(tmp_path, monkeypatch, step, attacker, edge,
+                                             side):
+    """A reading 1e-4 inside or outside one edge of its flag_cal band, every other
+    reading in the middle of its band: the report's verdict on the flag_cal bar (its
+    default), and every reading checked against both JAX runs."""
+    monkeypatch.chdir(REPO)
+    aucs_at = {s: {a: sum(FLAG_CAL_BANDS[(s, a)]) / 2 for a in h2h.ATTACKERS}
+               for s in h2h.FLAG_BAR_STEPS}
+    lo, hi = FLAG_CAL_BANDS[(step, attacker)]
+    shift = 1e-4 if side == "inside" else -1e-4
+    aucs_at[step][attacker] = lo + shift if edge == "lo" else hi - shift
+    for s, aucs in aucs_at.items():
+        write_port_csv(tmp_path / f"port_flag_s1_eval_{s:08d}.csv", aucs)
+    rows = h2h.load_run_aucs(h2h.FLAG, str(tmp_path))
+    checks = h2h.flag_verdict(rows, h2h.flag_deltas(h2h.load_aucs(str(DOCS))))
+    assert len(checks) == 6
+    assert {(c["step"], c["attacker"]) for c in checks if not c["ok"]} == (
+        set() if side == "inside" else {(step, attacker)})
+    assert h2h.game_report(h2h.FLAG, str(tmp_path)) == (side == "inside")
+    assert len(h2h.flag_verdict(rows, h2h.flag_deltas(h2h.load_aucs(str(DOCS))),
+                                "jax_pre")) == 6
+
+
+def test_flagship_report_prints_both_bars_and_the_moments(tmp_path, monkeypatch, capsys):
+    """``--flagship --report`` over a bf16 and an f32 run with moments (and the committed
+    runs): each reading
+    against flag_cal and flag100k_hard (labelled pre-dbb161f), the f32 run under its
+    own label, and the GIM authenticator's score moments beside flag_cal's."""
+    monkeypatch.chdir(REPO)
+    moments = {"gim": (0.45, 0.3, -0.7, 0.7), "replay": (0.45, 0.3, -1.4, 0.5),
+               "rnd_src": (0.45, 0.3, -0.3, 0.9)}
+    aucs = {"gim": 0.9616, "replay": 0.9998, "rnd_src": 0.785}
+    write_cal_csv(tmp_path / "port_flag_s2_eval_00010000.csv", aucs, moments)
+    write_cal_csv(tmp_path / "port_flag_s1_f32_eval_00010000.csv",
+                  dict(aucs, gim=0.5), moments)
+    h2h.main(["--flagship", "--report", "--csv_dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert ("| 10000 | port s2, 1 card | +0.4500 ± 0.3000 | -0.7000 ± 0.7000 | "
+            "-1.4000 ± 0.5000 | -0.3000 ± 0.9000 |") in out
+    assert ("| 10000 | JAX | +0.4530 ± 0.3024 | -0.7372 ± 0.6960 | -1.4390 ± 0.4720 | "
+            "-0.2890 ± 0.8760 |") in out
+    assert ("bar step 10000 gim port s2, 1 card: port 0.9616, JAX 0.9616 +- 0.112 = "
+            "[0.8496, 1.0000]: inside") in out
+    assert ("bar step 10000 gim port f32 s1, 1 card: port 0.5000, JAX 0.9616 +- 0.112 = "
+            "[0.8496, 1.0000]: MISSED") in out
+    assert ("bar step 10000 gim port s2, 1 card: port 0.9616, JAX pre-dbb161f 0.7476 +- "
+            "0.112 = [0.6356, 0.8596]: MISSED") in out
+    # with the committed runs' readings (the report reads docs/flagship_head_to_head too)
+    n = 6 + len(h2h.flag_verdict(h2h.load_run_aucs(h2h.FLAG, h2h.FLAG_DOCS_DIR),
+                                 h2h.flag_deltas(h2h.load_aucs(str(DOCS)))))
+    assert f"bar (JAX): missed or not read at {n} readings" in out
+    assert f"bar (JAX pre-dbb161f): missed or not read at {n} readings" in out
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "float32"])
+@pytest.mark.parametrize("cards", [1, 4])
+def test_flagship_file_names_and_eval_command(compute_dtype, cards):
+    """An f32 run's files end its tag in ``_f32`` and read back as the "port_f32" run;
+    the flagship's grid writes the moments at ``--calibrate_q 0.95`` and the raw scores
+    beside its CSV, the vox grid neither."""
+    tag = h2h.run_tag(1, cards, compute_dtype)
+    assert tag == "s1" + ("_cards4" if cards == 4 else "") + (
+        "_f32" if compute_dtype else "")
+    path = h2h.run_csv_path(h2h.FLAG, "out", 1, cards, 5000, compute_dtype)
+    assert path == f"out/port_flag_{tag}_eval_00005000.csv"
+    m = h2h.RUN_CSV_NAME.search(path)
+    assert h2h.PORT_IMPLS[bool(m.group(4))] == ("port_f32" if compute_dtype else "port")
+    assert h2h.scores_dir(path) == f"out/port_flag_{tag}_scores_00005000"
+    cmd = h2h.eval_command(h2h.FLAG, "exp", path, 5000, "ds", "cuda", 32)
+    assert cmd[:3] == [sys.executable, "-m", h2h.EVAL_MODULE]
+    assert cmd[-4:] == ["--calibrate_q", "0.95", "--dump_scores_dir", h2h.scores_dir(path)]
+    vox = h2h.eval_command(h2h.VOX, "exp", "out/port_hardvox_s1_eval_00002500.csv", 2500,
+                           "ds", "cuda", 64)
+    assert "--calibrate_q" not in vox and "--dump_scores_dir" not in vox
+    assert vox[-2:] == ["--device", "cuda"]
