@@ -1108,8 +1108,8 @@ def check_noise_draw(seed: int) -> None:
     if len(cpu) != BF16_LEVELS or not torch.equal(card, cpu):
         fail(f"bf16 noise: {len(card)} values on the card, {len(cpu)} on the CPU, "
              f"equal {torch.equal(card, cpu) if len(card) == len(cpu) else False}")
-    print(f"  bf16 noise draw: the card's {len(card)} values are the CPU's "
-          f"[{card.min().item():.6f}, {card.max().item():.6f}], mean {card.mean().item():.4f}")
+    print(f"  bf16 noise draw: the card's {len(card)} values are the CPU's, from "
+          f"{card.min().item():.6f} to {card.max().item():.6f}")
 
 
 def check_train_launches(what: str, launches: dict, n_steps: int) -> None:

@@ -27,9 +27,10 @@ Every ``--every`` steps each side records, in ``<out>/traj_<dtype>_s<seed>.csv``
     losses;
   * each player's displacement from the start (the L2 norm over its parameters),
     and the distance between the two sides' parameters;
-  * the GIM and replay AUC of its current authenticator on the held-out episodes:
-    each side's own score function (the JAX package's and the port's
-    ``eval/authentication.py:get_au_function``) and AUC (sklearn's
+  * the GIM and replay AUC of its current authenticator on the held-out episodes,
+    and the mean and std of its scores of the real episodes and of each
+    attacker's fakes: each side's own score function (the JAX package's and the
+    port's ``eval/authentication.py:get_au_function``) and AUC (sklearn's
     ``roc_auc_score`` and the port's ``eval/scorer.py:roc_auc``); the GIM fakes
     are each side's impersonator with one fixed JAX noise draw, the replay fake
     the leaked image repeated n times.
@@ -45,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import dataclasses
 import glob
 import importlib.util
 import json
@@ -58,10 +60,12 @@ sys.path.insert(0, str(REPO))
 
 COLUMNS = ("step", "side", "au_out_on_real", "au_out_on_fake", "im_loss", "au_loss",
            "au_loss_on_real", "au_loss_on_fake", "disp_au", "disp_im", "gap_au", "gap_im",
-           "auc_gim", "auc_replay")
+           "auc_gim", "auc_replay", "score_real_mean", "score_real_std", "score_gim_mean",
+           "score_gim_std", "score_replay_mean", "score_replay_std")
 WINDOW_KEYS = COLUMNS[2:8]
+EVAL_KEYS = COLUMNS[12:]
 REPORT_KEYS = ("au_out_on_real", "au_out_on_fake", "disp_au", "disp_im", "auc_gim",
-               "auc_replay")
+               "auc_replay", "score_real_std", "score_gim_mean")
 
 
 def glyph_set(n_alphabets: int, n_chars: int, imgs_per_class: int, val_alphabets: int,
@@ -109,6 +113,13 @@ def flat_params(tree_or_module):
     return {k: np.asarray(v, np.float64) for k, v in flax_to_state_dict(tree_or_module, {}).items()}
 
 
+def moments(real, fakes) -> list:
+    """[real mean, real std, then each fake's mean and std] of score vectors."""
+    import numpy as np
+
+    return [float(f(x)) for x in (real, *fakes) for f in (np.mean, np.std)]
+
+
 def distance(a: dict, b: dict) -> float:
     import numpy as np
 
@@ -125,10 +136,10 @@ def run(args) -> None:
     from optimalstrategiesagainstgenerativeattacks_torch.eval import authentication as teval
     from optimalstrategiesagainstgenerativeattacks_torch.eval.scorer import roc_auc
     from optimalstrategiesagainstgenerativeattacks_torch.port.transplant import (
+        load_flax,
         state_dict_to_flax,
     )
     from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
-    from optimalstrategiesagainstgenerativeattacks_torch.port.transplant import load_flax
     from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
     from optimalstrategiesagainstgenerativeattacks_tpu.eval import authentication as jeval
     from optimalstrategiesagainstgenerativeattacks_tpu.train import image as jimg
@@ -139,8 +150,6 @@ def run(args) -> None:
     t0 = time.perf_counter()
     cfg = ImageGameConfig(img_size=32, style_dim=args.style_dim, batch_size=args.batch_size,
                           compute_dtype=args.compute_dtype, seed=args.seed)
-    import dataclasses
-
     jcfg = jconfig.ImageGameConfig(**dataclasses.asdict(cfg), au_microbatch=1)
     train, held_out = glyph_set(args.n_alphabets, args.n_chars, 20, 2, cfg.img_size)
     eval_batch = episodes(held_out, args.eval_episodes, cfg.m, cfg.n, cfg.k,
@@ -186,13 +195,10 @@ def run(args) -> None:
         fake = jim.apply({"params": state.params_im, "spectral": state.spectral_im},
                          jnp.asarray(prep["leaked_sample"]), cfg.n,
                          cfg.remove_noise_mean, False, z=jnp.asarray(eval_z, z_dtype))
-        real = score(prep["real_sample"], prep["si_sample"])
-        out = []
-        for f in (np.asarray(fake, np.float32), replay):
-            s_fake = score(f, prep["si_sample"])
-            labels = np.r_[np.ones(len(real)), np.zeros(len(s_fake))]
-            out.append(float(roc_auc_score(labels, np.r_[real.ravel(), s_fake.ravel()])))
-        return out
+        real = score(prep["real_sample"], prep["si_sample"]).ravel()
+        fakes = [score(f, prep["si_sample"]).ravel() for f in (np.asarray(fake, np.float32), replay)]
+        return [float(roc_auc_score(np.r_[np.ones(len(real)), np.zeros(len(f))], np.r_[real, f]))
+                for f in fakes] + moments(real, fakes)
 
     def port_aucs(state):
         score = teval.get_au_function(state.au, dt, "cpu")
@@ -200,12 +206,10 @@ def run(args) -> None:
             fake = state.im(torch.from_numpy(prep["leaked_sample"]).to(dt), cfg.n,
                             cfg.remove_noise_mean, z=torch.from_numpy(eval_z.copy()).to(dt))
         real = score(prep["real_sample"], prep["si_sample"]).float().numpy().ravel()
-        out = []
-        for f in (fake.float().numpy(), replay):
-            s_fake = score(f, prep["si_sample"]).float().numpy().ravel()
-            out.append(float(roc_auc(np.r_[np.ones(len(real)), np.zeros(len(s_fake))],
-                                     np.r_[real, s_fake])))
-        return out
+        fakes = [score(f, prep["si_sample"]).float().numpy().ravel()
+                 for f in (fake.float().numpy(), replay)]
+        return [float(roc_auc(np.r_[np.ones(len(real)), np.zeros(len(f))], np.r_[real, f]))
+                for f in fakes] + moments(real, fakes)
 
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"traj_{args.compute_dtype}_s{args.seed}.csv")
@@ -232,7 +236,7 @@ def run(args) -> None:
             for p in ("au", "im"):
                 row[f"disp_{p}"] = distance(params[side][p], start[p])
                 row[f"gap_{p}"] = distance(params["port"][p], params["jax"][p])
-            row["auc_gim"], row["auc_replay"] = aucs[side]
+            row.update(zip(EVAL_KEYS, aucs[side]))
             rows.append(row)
         windows = {"jax": [], "port": []}
         with open(path, "w", newline="") as f:
@@ -243,8 +247,9 @@ def run(args) -> None:
         print(f"step {step} ({time.perf_counter() - t0:.0f} s): out real/fake jax "
               f"{j['au_out_on_real']:+.4f}/{j['au_out_on_fake']:+.4f} port "
               f"{p['au_out_on_real']:+.4f}/{p['au_out_on_fake']:+.4f}; gim AUC jax "
-              f"{j['auc_gim']:.4f} port {p['auc_gim']:.4f}; gap au {p['gap_au']:.3g} im "
-              f"{p['gap_im']:.3g}", flush=True)
+              f"{j['auc_gim']:.4f} port {p['auc_gim']:.4f}; real score std jax "
+              f"{j['score_real_std']:.4g} port {p['score_real_std']:.4g}; gap au "
+              f"{p['gap_au']:.3g} im {p['gap_im']:.3g}", flush=True)
         if time.perf_counter() + (time.perf_counter() - t0) / step * args.every > deadline:
             break
     with open(os.path.join(args.out, f"traj_{args.compute_dtype}_s{args.seed}.json"), "w") as f:
@@ -280,8 +285,8 @@ def report(out: str) -> dict:
         by = {s: {(r["step"], r["side"]): r for r in runs[(dtype, s)]} for s in seeds}
         steps = sorted(set.intersection(*({st for st, side in b} for b in by.values())))
         print(f"\n{dtype}, seeds {seeds}: JAX [min, max] over seeds | port [min, max]")
-        print("| step | " + " | ".join(REPORT_KEYS) + " |")
-        print("|---|" + "---|" * len(REPORT_KEYS))
+        print("| step | " + " | ".join(f"{k} JAX | port" for k in REPORT_KEYS) + " |")
+        print("|---|" + "---|---|" * len(REPORT_KEYS))
         inside = total = 0
         for st in steps:
             cells = []

@@ -72,9 +72,12 @@ steps with ``scripts/eval_hardvox_grid.sh``).
    gim and replay AUC at least the JAX run's lowest over its six checkpoints,
    rnd_src AUC inside its [min, max] over them.
 
-``--flagship``: the flagship game against the JAX package's 100k-step run of its
-CLI's defaults on the hard glyph set (``docs/flag100k_hard/``, a grid every 5000
-steps).
+``--flagship``: the flagship game against the JAX package's runs of its CLI's
+defaults on the hard glyph set, a grid every 5000 steps: ``docs/flag_cal/``, the run
+of the package's current game code (77b1e69..5d543c3, 66k steps, its grids with the
+score moments and raw scores), which the bar rests on, and ``docs/flag100k_hard/``,
+the 100k-step run of 5752b10, before dbb161f changed the image step's bf16
+arithmetic, printed beside it.
 1. The set: the glyph study's (``scripts/make_hard_glyph_ds.py`` at its defaults);
    its digest goes into ``<csv_dir>/port_flag_set.json`` and is compared with
    ``docs/hard_head_to_head/port_hard_set.json``.
@@ -83,11 +86,16 @@ steps).
    lr 1e-6 / 1e-5 / 1e-7, 100 episodes a class an epoch, no milestones), a
    checkpoint every ``--save_every`` (5000) steps, as many epochs as reach
    ``--n_steps`` (10000).
-3. Eval: the port's eval CLI on the val split, 32 px, m1 n5 k5 (the columns of
-   the JAX run's CSVs), into ``<csv_dir>/port_flag_s<seed>_eval_<step:08d>.csv``.
-4. The bar at steps 5000 and 10000: each attacker's AUC inside the JAX run's
+   ``--compute_dtype float32`` trains the f32 game (files ``..._s<seed>_f32_...``).
+3. Eval: the port's eval CLI on the val split, 32 px, m1 n5 k5, with
+   ``--calibrate_q 0.95`` (the columns of the flag_cal run's CSVs: the score
+   moments), into ``<csv_dir>/port_flag_s<seed>_eval_<step:08d>.csv``, the raw
+   scores into ``<csv_dir>/port_flag_s<seed>_scores_<step:08d>/``.
+4. The bar at steps 5000 and 10000: each attacker's AUC inside the flag_cal run's
    reading +- delta, delta the largest range over seeds of the JAX glyph study's
-   readings at steps 4999 and 10000 (gim 0.112, replay 0.050, rnd_src 0.188).
+   readings at steps 4999 and 10000 (gim 0.112, replay 0.050, rnd_src 0.188); the
+   same against flag100k_hard's reading beside it, and the GIM authenticator's
+   score mean and std beside flag_cal's.
 
 Both modes: ``--cards N`` trains on N cards (``train_command``): 1, the default,
 pins the CLI to one card; more leave N visible, and the CLI trains data parallel

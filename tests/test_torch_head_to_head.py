@@ -16,7 +16,7 @@
 
 The rehearsals of the whole script at a tiny size are in
 ``test_torch_head_to_head_study.py`` (the glyph study) and
-``test_torch_head_to_head_rehearsals.py`` (``--vox`` and ``--flagship``).
+``test_torch_head_to_head_vox.py`` and ``test_torch_head_to_head_flagship.py``.
 """
 
 from __future__ import annotations
@@ -324,6 +324,9 @@ def test_cards_build_the_one_card_and_the_data_parallel_commands(monkeypatch, ga
 FAKE_CLI = r"""
 import os, subprocess, sys, time
 exp, rate, mode = sys.argv[1], float(sys.argv[2]), sys.argv[3]
+if mode == "hang":  # the child first: a run stopped at its first grids has started it
+    child = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(120)"])
+    print(child.pid, flush=True)
 t = time.time() - 1000
 for step in (0, 500):
     d = os.path.join(exp, "imgs", "train", "leaked")
@@ -336,8 +339,6 @@ open(os.path.join(exp, "ckpts", "model_00000500"), "wb").close()
 if mode == "fail":
     sys.exit(3)
 if mode == "hang":
-    child = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(120)"])
-    print(child.pid, flush=True)
     time.sleep(120)
 """
 
@@ -411,26 +412,33 @@ def test_committed_vox_reading_at_the_bar_step(monkeypatch):
 
 
 def test_committed_flagship_readings(monkeypatch):
-    """The port's flagship runs (one card, the CLI's defaults): seed 1 read at 5000
-    and 10000, seed 2 at 5000; the JAX run's columns, each run's arguments with its
-    record, the set's digest the glyph study's, and the bar's verdict as `PERF.md`
-    reports it (gim under its band at every reading, replay at 10000)."""
+    """The port's flagship runs on the parent's game code (one card, the CLI's
+    defaults): seeds 1 and 2 read at 5000 and 10000; the columns of the JAX run of the
+    grids' eval (seed 2's grids with the score moments, as flag_cal's), each run's
+    arguments with its record, the set's digest the glyph study's, the bar's verdict
+    against both JAX runs as `PERF.md` reports it, and seed 2's score moments."""
     monkeypatch.chdir(REPO)
     docs = REPO / h2h.FLAG_DOCS_DIR
     rows = h2h.load_run_aucs(h2h.FLAG, str(docs))
     for a in h2h.ATTACKERS:
         assert sorted(rows[("port", 5000, a)]) == [(1, 1), (2, 1)]
-        assert sorted(rows[("port", 10000, a)]) == [(1, 1)]
+        assert sorted(rows[("port", 10000, a)]) == [(1, 1), (2, 1)]
+    headers = {}
+    for name in ("flag100k", "flag_cal"):
+        path = (REPO / h2h.JAX_FLAG_DIR / "eval_step00005000.csv" if name == "flag100k"
+                else REPO / h2h.JAX_FLAG_CAL_DIR / "cal_eval_00005000.csv")
+        with open(path, newline="") as f:
+            headers[name] = next(csv.reader(f))
     for path in sorted(docs.glob("port_flag_s*_eval_*.csv")):
-        with open(path, newline="") as f, \
-                open(REPO / h2h.JAX_FLAG_DIR / "eval_step00005000.csv", newline="") as g:
-            assert next(csv.reader(f)) == next(csv.reader(g)), path.name
-    for seed, n_epochs in ((1, 26), (2, 13)):
+        with open(path, newline="") as f:
+            want = headers["flag_cal" if path.name.startswith("port_flag_s2") else "flag100k"]
+            assert next(csv.reader(f)) == want, path.name
+    for seed in (1, 2):
         args = json.loads((docs / f"port_flag_s{seed}_args.json").read_text())
         assert (args["seed"], args["n_epochs"], args["save_every"], args["device_data"],
                 args["au_lr"], args["im_lr"], args["env_noise_mapping_lr"], args["img_size"],
                 args["style_dim"], args["batch_size"], args["compute_dtype"]) == (
-            seed, n_epochs, 5000, "auto", 1e-6, 1e-5, 1e-7, 32, 512, 128, "bfloat16")
+            seed, 26, 5000, "auto", 1e-6, 1e-5, 1e-7, 32, 512, 128, "bfloat16")
         run = args["study_run"]
         assert (run["cards"], run["stopped"], run["card"]) == (
             1, None, "NVIDIA H100 80GB HBM3, 700.00 W")
@@ -440,10 +448,20 @@ def test_committed_flagship_readings(monkeypatch):
                           for c in h2h.flag_verdict(rows, deltas, ref) if not c["ok"])
               for ref in ("jax", "jax_pre")}
     assert missed == {
-        "jax": [(5000, "gim", 2), (10000, "gim", 1), (10000, "replay", 1)],
+        "jax": [(5000, "gim", 2), (10000, "gim", 1), (10000, "gim", 2), (10000, "replay", 1),
+                (10000, "rnd_src", 2)],
         "jax_pre": [(5000, "gim", 1), (5000, "gim", 2), (10000, "gim", 1),
-                    (10000, "replay", 1)]}
-    assert len(h2h.flag_verdict(rows, deltas)) == 9
+                    (10000, "replay", 1), (10000, "rnd_src", 2)]}
+    assert len(h2h.flag_verdict(rows, deltas)) == 12
+    # the scores' scale: seed 2's real scores at 10000 against the JAX run's
+    moments = h2h.load_run_moments(h2h.FLAG, str(docs))
+    port_real_std = moments[("port", 10000, "gim")][(2, 1)][1]
+    jax_real_std = moments[("jax", 10000, "gim")][0][1]
+    assert (round(port_real_std, 4), round(jax_real_std, 4)) == (0.0050, 0.3024)
+    for step in (5000, 10000):
+        for a in h2h.ATTACKERS:
+            assert np.load(docs / f"port_flag_s2_scores_{step:08d}" / f"scores_gim_{a}.npz")[
+                "score_real"].shape == (300,)
 
 
 # the flagship bar's bands on the JAX run of the package's current game code
@@ -527,20 +545,20 @@ def test_flagship_report_prints_both_bars_and_the_moments(tmp_path, monkeypatch,
     moments = {"gim": (0.45, 0.3, -0.7, 0.7), "replay": (0.45, 0.3, -1.4, 0.5),
                "rnd_src": (0.45, 0.3, -0.3, 0.9)}
     aucs = {"gim": 0.9616, "replay": 0.9998, "rnd_src": 0.785}
-    write_cal_csv(tmp_path / "port_flag_s2_eval_00010000.csv", aucs, moments)
-    write_cal_csv(tmp_path / "port_flag_s1_f32_eval_00010000.csv",
+    write_cal_csv(tmp_path / "port_flag_s7_eval_00010000.csv", aucs, moments)
+    write_cal_csv(tmp_path / "port_flag_s7_f32_eval_00010000.csv",
                   dict(aucs, gim=0.5), moments)
     h2h.main(["--flagship", "--report", "--csv_dir", str(tmp_path)])
     out = capsys.readouterr().out
-    assert ("| 10000 | port s2, 1 card | +0.4500 ± 0.3000 | -0.7000 ± 0.7000 | "
+    assert ("| 10000 | port s7, 1 card | +0.4500 ± 0.3000 | -0.7000 ± 0.7000 | "
             "-1.4000 ± 0.5000 | -0.3000 ± 0.9000 |") in out
     assert ("| 10000 | JAX | +0.4530 ± 0.3024 | -0.7372 ± 0.6960 | -1.4390 ± 0.4720 | "
             "-0.2890 ± 0.8760 |") in out
-    assert ("bar step 10000 gim port s2, 1 card: port 0.9616, JAX 0.9616 +- 0.112 = "
+    assert ("bar step 10000 gim port s7, 1 card: port 0.9616, JAX 0.9616 +- 0.112 = "
             "[0.8496, 1.0000]: inside") in out
-    assert ("bar step 10000 gim port f32 s1, 1 card: port 0.5000, JAX 0.9616 +- 0.112 = "
+    assert ("bar step 10000 gim port f32 s7, 1 card: port 0.5000, JAX 0.9616 +- 0.112 = "
             "[0.8496, 1.0000]: MISSED") in out
-    assert ("bar step 10000 gim port s2, 1 card: port 0.9616, JAX pre-dbb161f 0.7476 +- "
+    assert ("bar step 10000 gim port s7, 1 card: port 0.9616, JAX pre-dbb161f 0.7476 +- "
             "0.112 = [0.6356, 0.8596]: MISSED") in out
     # with the committed runs' readings (the report reads docs/flagship_head_to_head too)
     n = 6 + len(h2h.flag_verdict(h2h.load_run_aucs(h2h.FLAG, h2h.FLAG_DOCS_DIR),
