@@ -23,6 +23,9 @@ def test_flagship_rehearsal_on_the_cpu(tmp_path, monkeypatch, cards):
     with 2 cards two CPU ranks over gloo and the host loader.  The set's record,
     its verdict against the glyph study's, the CSVs' names and columns (the JAX
     run's), the copied arguments with the run's record."""
+    # the CLIs it starts on one intra-op thread each, as test_torch_parallel.py's ranks:
+    # under a busy xdist run their default of one thread a core oversubscribes the host
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     ds = tmp_path / "ds"
     subprocess.run([sys.executable, h2h.MAKE_SET, "--out", str(ds), "--n_alphabets", "2",
                     "--n_chars", "3", "--val_alphabets", "1", "--imgs_per_class", "12",

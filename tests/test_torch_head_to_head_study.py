@@ -14,6 +14,9 @@ from head_to_head_support import REPO, h2h, jax_header
 
 
 def test_study_rehearsal_on_the_cpu(tmp_path, monkeypatch):
+    # the CLIs it starts on one intra-op thread each, as test_torch_parallel.py's ranks:
+    # under a busy xdist run their default of one thread a core oversubscribes the host
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     ds = tmp_path / "ds"
     subprocess.run([sys.executable, h2h.MAKE_SET, "--out", str(ds), "--n_alphabets", "2",
                     "--n_chars", "3", "--val_alphabets", "1", "--imgs_per_class", "12",

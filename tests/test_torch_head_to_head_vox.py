@@ -22,6 +22,9 @@ def test_vox_rehearsal_on_the_cpu(tmp_path, monkeypatch, n_steps, cudnn_benchmar
     which numbers its steps from 0, would stop one short), the eval CLI's grid of
     the checkpoint at ``n_steps``, and ``--report`` over the committed CSVs with
     the bar's verdict."""
+    # the CLIs it starts on one intra-op thread each, as test_torch_parallel.py's ranks:
+    # under a busy xdist run their default of one thread a core oversubscribes the host
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     ds = tmp_path / "ds"
     subprocess.run([sys.executable, h2h.MAKE_VOX_SET, "--out", str(ds), "--n_identities", "4",
                     "--val_identities", "2", "--videos_per_identity", "2",
