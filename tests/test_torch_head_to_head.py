@@ -464,6 +464,32 @@ def test_committed_flagship_readings(monkeypatch):
                 "score_real"].shape == (300,)
 
 
+def test_committed_noise_draw_readings(monkeypatch):
+    """Seed 1 to 10000 on the tree whose bf16 noise takes ``jax.random.normal``'s values
+    (``docs/flagship_head_to_head/noise_draw/``): the flag_cal run's columns, the
+    run's record, its verdict against flag_cal as `PERF.md` reports it, and its scores
+    at the init scale."""
+    monkeypatch.chdir(REPO)
+    docs = REPO / h2h.FLAG_DOCS_DIR / "noise_draw"
+    rows = h2h.load_run_aucs(h2h.FLAG, str(docs))
+    with open(REPO / h2h.JAX_FLAG_CAL_DIR / "cal_eval_00005000.csv", newline="") as f:
+        header = next(csv.reader(f))
+    for step in h2h.FLAG_BAR_STEPS:
+        assert all(list(rows[("port", step, a)]) == [(1, 1)] for a in h2h.ATTACKERS)
+        with open(docs / f"port_flag_s1_eval_{step:08d}.csv", newline="") as f:
+            assert next(csv.reader(f)) == header
+    args = json.loads((docs / "port_flag_s1_args.json").read_text())
+    assert (args["seed"], args["n_epochs"], args["compute_dtype"], args["study_run"]["card"],
+            args["study_run"]["stopped"]) == (1, 26, "bfloat16",
+                                              "NVIDIA H100 80GB HBM3, 700.00 W", None)
+    checks = h2h.flag_verdict(rows, h2h.flag_deltas(h2h.load_aucs(str(DOCS))))
+    assert sorted((c["step"], c["attacker"]) for c in checks if not c["ok"]) == [
+        (5000, "gim"), (10000, "gim"), (10000, "replay")]
+    moments = h2h.load_run_moments(h2h.FLAG, str(docs))
+    assert all(moments[("port", step, "gim")][(1, 1)][1] < 0.02
+               for step in h2h.FLAG_BAR_STEPS)  # real scores' std; flag_cal's 0.11, 0.30
+
+
 # the flagship bar's bands on the JAX run of the package's current game code
 # (docs/flag_cal/): its reading at the step +- delta, the upper edge at most 1
 FLAG_CAL_BANDS = {
