@@ -77,8 +77,8 @@ within a factor of 1 (measured: means 0.062, 0.265, 0.061 against 0.128,
 metrics within the card's bf16 kernel bar, atol 1e-2 plus 2^-6 of the value
 (measured: within 0.17 of it).
 
-One compile of each reference step serves its K steps, and the three
-compiles run at once.
+One compile of each reference step serves its K steps; the compiles run
+beside the tracing and the steps.
 """
 
 import dataclasses
@@ -217,13 +217,6 @@ class Reference:
             rngs={"noise": jax.random.split(jax.random.fold_in(rng, step))[1]}))
 
 
-def compile_all(lowered_and_options):
-    """Compile each (lowered step, XLA options) at once: XLA compiles outside the GIL."""
-    with ThreadPoolExecutor(len(lowered_and_options)) as pool:
-        return list(pool.map(lambda lo: lo[0].compile(compiler_options=lo[1]),
-                             lowered_and_options))
-
-
 def run_reference(ref, step_fn, batches, perturb_seed=None):
     """K reference steps -> ([record of each step], final state); with ``perturb_seed``
     every parameter is moved by one f32 ulp (random signs) before each step."""
@@ -259,17 +252,22 @@ def cases():
     av, iv = start(CFG)
     batches = [uint8_batch(CFG, seed=20 + t) for t in range(K)]
     cfg16 = dataclasses.replace(CFG, compute_dtype="bfloat16")
-    ref, ref16 = Reference(CFG, av, iv, batches[0]), Reference(cfg16, av, iv, batches[0])
-    step, step_opt0, step16 = compile_all([
-        (ref.lowered, None), (ref.lowered, {"xla_backend_optimization_level": 0}),
-        (ref16.lowered, None)])
-    out = {"jax": run_reference(ref, step, batches),
-           "jax_opt0": run_reference(ref, step_opt0, batches),
-           "jax_bf16": run_reference(ref16, step16, batches),
-           "port": run_port(CFG, ref, av, iv, batches),
-           "port_bf16": run_port(cfg16, ref16, av, iv, batches)}
-    for seed in PERTURB_SEEDS:
-        out[f"jax_ulp{seed}"] = run_reference(ref, step, batches, seed)
+    # XLA compiles outside the GIL: the f32 compiles run while the bf16 step is
+    # traced, and the bf16 compile while the f32 trajectories run
+    ref = Reference(CFG, av, iv, batches[0])
+    with ThreadPoolExecutor(3) as pool:
+        step = pool.submit(ref.lowered.compile)
+        step_opt0 = pool.submit(ref.lowered.compile,
+                                compiler_options={"xla_backend_optimization_level": 0})
+        ref16 = Reference(cfg16, av, iv, batches[0])
+        step16 = pool.submit(ref16.lowered.compile)
+        out = {"jax": run_reference(ref, step.result(), batches),
+               "port": run_port(CFG, ref, av, iv, batches)}
+        for seed in PERTURB_SEEDS:
+            out[f"jax_ulp{seed}"] = run_reference(ref, step.result(), batches, seed)
+        out["jax_opt0"] = run_reference(ref, step_opt0.result(), batches)
+        out["port_bf16"] = run_port(cfg16, ref16, av, iv, batches)
+        out["jax_bf16"] = run_reference(ref16, step16.result(), batches)
     return out
 
 
