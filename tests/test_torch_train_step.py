@@ -41,8 +41,8 @@ Two cases: the flagship's ``reg_param = 0`` on one channel, and the R1 case
 authenticator gradient runs a double backward through the encoders.  Both
 hold the same tolerances; the R1 metrics include ``au_reg``.
 
-The R1 case in bf16 and ``eval_step``, ``sample`` and ``diag`` are in
-``test_torch_train_step_bf16.py``.
+The R1 case in bf16 is in ``test_torch_train_step_bf16.py``, ``eval_step``,
+``sample`` and ``diag`` in ``test_torch_train_step_eval.py``.
 """
 
 import functools

@@ -400,7 +400,6 @@ def test_trajectory_params_match_jax(player):
         assert np.all(bound <= 2 * lr * s * (1 + 1e-6)), k
         tight += int((bound < 0.1 * lr).sum())
         assert np.all(np.abs(p - ref[k]) <= 1e-7 + 1e-6 * np.abs(ref[k]) + bound), k
-    print(player, "entries held within 0.1 lr:", tight, "of", sum(p.size for p in got.values()))
     assert tight > 0
 
 
