@@ -29,6 +29,7 @@ from optimalstrategiesagainstgenerativeattacks_torch.nn.blocks import (
     ResBlockDown,
     ResBlockUp,
     SelfAttention,
+    round_to,
 )
 from optimalstrategiesagainstgenerativeattacks_torch.nn.stats import MeanStdFcStat
 from optimalstrategiesagainstgenerativeattacks_torch.ops.image_ops import (
@@ -42,12 +43,6 @@ from optimalstrategiesagainstgenerativeattacks_torch.utils.rng import normal
 
 MIN_CHANNELS = 64  # narrowest conv stage of every encoder and decoder
 N_ADAIN_RES_BLOCKS = 5
-
-
-def round_to(x, dtype: Optional[torch.dtype]):
-    """``x`` in the compute dtype, where XLA's compile of the JAX step rounds a value
-    that a residual block returns in f32 (``nn/blocks.py``)."""
-    return x if dtype is None else x.to(dtype)
 
 
 def down_channel_schedule(img_size: int, img_channels: int, style_dim: int):
@@ -127,7 +122,9 @@ class EnvDecoder(nn.Module):
 
 
 class Img2ImgDownModule(nn.Module):
-    """Down stage of the image translator: ResBlockDown (9x9 first) + InstanceNorm per stage."""
+    """Down stage of the image translator: ResBlockDown (9x9 first) + InstanceNorm per stage.
+
+    The input may be a tuple of channel parts, which the first block reads as such."""
 
     def __init__(self, img_size: int, img_channels: int, style_dim: int = 512,
                  dtype: Optional[torch.dtype] = None):
@@ -200,7 +197,8 @@ class Img2ImgAdaInUpModule(nn.Module):
 
 
 class AdaInImage2Image(nn.Module):
-    """Down -> AdaIN res -> AdaIN up image translator."""
+    """Down -> AdaIN res -> AdaIN up image translator; the input an NCHW image or a
+    tuple of its channel parts."""
 
     def __init__(self, img_size: int, in_channels: int, out_channels: int, style_dim: int,
                  dtype: Optional[torch.dtype] = None):
@@ -266,9 +264,14 @@ class GIMFaceImpersonator(nn.Module):
     forward([B, m, H, W, C], n) ->
       1. src/env = mean over m of the src/env encoders of the leaked images;
       2. w = env_noise_mapper(z), z ~ N(0, I) (or given), mean-centred over n;
-      3. env_img = env_decoder(env + w), channel-concat with the first leaked image;
-      4. fake = img2img(env_img, style=src)  -> [B, n, H, W, C];
+      3. env_img = env_decoder(env + w), beside the first leaked image;
+      4. fake = img2img((env_img, leaked image), style=src)  -> [B, n, H, W, C];
       5. with ``use_img_att``, fake = img_att(first leaked image, fake).
+
+    ``split_gen_input`` (the reference's field, on by default): img2img reads the
+    pair as two channel parts, its first convs summing a conv of each with a
+    slice of their kernels; off, it reads their channel concat.  The parameters
+    are the same either way.
 
     ``img_att`` exists only with ``use_img_att`` (the JAX impersonator owns no
     such parameters otherwise).
@@ -277,7 +280,7 @@ class GIMFaceImpersonator(nn.Module):
     def __init__(self, encoders: EncoderPair, env_decoder: EnvDecoder,
                  img2img: AdaInImage2Image, env_noise_mapper: MLP, style_dim: int,
                  img_channels: int, use_img_att: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, split_gen_input: bool = True):
         super().__init__()
         self.encoders = encoders
         self.env_decoder = env_decoder
@@ -289,6 +292,7 @@ class GIMFaceImpersonator(nn.Module):
         self.style_dim = style_dim
         self.img_channels = img_channels
         self.dtype = dtype
+        self.split_gen_input = split_gen_input
 
     def forward(self, leaked_sample, n: int, remove_noise_mean: bool = True,
                 z: Optional[torch.Tensor] = None,
@@ -310,7 +314,7 @@ class GIMFaceImpersonator(nn.Module):
 
         env_img = self.env_decoder(noisy_env.reshape(b * n, self.style_dim))
         leaked_img = to_nchw(expanded.reshape(b * n, h, w, c))
-        x = torch.cat([env_img, leaked_img], dim=1)
+        x = (env_img, leaked_img) if self.split_gen_input else torch.cat([env_img, leaked_img], 1)
         style = src[:, None, :].expand(b, n, self.style_dim).reshape(b * n, self.style_dim)
         fake = self.img2img(x, style)
         if self.use_img_att:
@@ -320,8 +324,8 @@ class GIMFaceImpersonator(nn.Module):
 
 
 def get_im(img_size: int, img_channels: int, style_dim: int, use_img_att: bool = False,
-           num_env_noise_layers: int = 4,
-           dtype: Optional[torch.dtype] = None) -> GIMFaceImpersonator:
+           num_env_noise_layers: int = 4, dtype: Optional[torch.dtype] = None,
+           split_gen_input: bool = True) -> GIMFaceImpersonator:
     """The image impersonator (``get_im`` of the reference)."""
     encoders = EncoderPair(img_size=img_size, img_channels=img_channels, style_dim=style_dim,
                            dtype=dtype)
@@ -330,7 +334,8 @@ def get_im(img_size: int, img_channels: int, style_dim: int, use_img_att: bool =
                                dtype=dtype)
     mapper = MLP([style_dim] * (num_env_noise_layers + 1), dtype=dtype)
     return GIMFaceImpersonator(encoders, decoder, img2img, mapper, style_dim, img_channels,
-                               use_img_att=use_img_att, dtype=dtype)
+                               use_img_att=use_img_att, dtype=dtype,
+                               split_gen_input=split_gen_input)
 
 
 def get_au(img_size: int, img_channels: int, style_dim: int,

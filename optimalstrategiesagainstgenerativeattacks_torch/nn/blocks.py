@@ -9,7 +9,11 @@ path uses).  Submodule and parameter names follow the Flax names, so
 Compute dtype policy (as in the reference): parameters stay f32; every conv
 and linear casts its input and its (normalised) weight to ``dtype`` when one
 is given, so a bf16 game runs bf16 convs and matmuls with f32 parameters and
-f32 normalisation statistics.  No ``torch.autocast``.
+f32 normalisation statistics.  No ``torch.autocast``.  The bias enters as in
+the reference: a conv rounds its output to ``dtype`` and then adds the bias
+rounded to ``dtype`` (a second rounding; an f32 conv adds its bias itself,
+which gives the same output); ``Dense`` multiplies the rounded operands with
+an f32 product, adds the f32 bias and rounds once.
 
 Where XLA's default compile of the JAX step keeps a bf16 value in f32 for
 the op that reads it (``xla_allow_excess_precision``), the port keeps it in
@@ -27,11 +31,21 @@ knows the consumer rounds it (``models/image.py``).
 axis (``parallel/tensor.py``: ``model_axis`` set, the weight holding this
 rank's output rows); unset, the forward is the one above.
 
-The blocks run in the plain torch order (conv then pool, upsample then conv,
-a channel concat for two-part inputs).  The reference folds some of these
-into single convs (exact algebra: ``nn/blocks.py`` ``_fold_kernel_for_*``,
-the 1x1 skip conv moved before pooling or upsampling, the tuple input); the
-folds are left for measurement on the H100.
+The main-path blocks run in the reference's order, with its folds (exact
+algebra): ``ResBlockDown`` pools before its 1x1 skip conv and folds the
+trailing pool into a stride-2 conv (``SNConv(downscale=2)``, K' = (K * 1_2x2)
+/ 4); ``ResBlockUp`` and ``AdaResBlockUp2`` run the 1x1 skip conv before the
+upsample and fold the upsample into a transposed stride-2 conv
+(``SNConv(upscale=2)``, K' = K * 1_2x2).  An ``SNConv`` given a tuple of
+channel parts sums per-part convs over slices of its kernel, as the JAX
+``SNConv`` does (the impersonator's ``split_gen_input``).  The folds change
+the roundings of a bf16 game (a conv of other operands rounds elsewhere), so
+with them the port's bf16 blocks round where XLA's compile of the JAX blocks
+does (``tests/test_torch_folds.py``).  So does the bf16 LeakyReLU
+(``ops/image_ops.py``), and a norm that reads a value the port holds in f32
+gives its output in the compute dtype, as the reference's norm gives its
+input's declared dtype (``round_to``).  The legacy blocks keep the order
+they share with the reference.
 """
 
 from __future__ import annotations
@@ -92,9 +106,13 @@ class Dense(nn.Module):
         w, b, axis = self.weight, self.bias, self.model_axis
         if axis is not None:
             x, b = tensor.copy_to_model(x, axis), tensor.split_to_model(b, axis)
-        if self.dtype is not None:
-            x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
-        out = F.linear(x, w, b)
+        if self.dtype is None:
+            out = F.linear(x, w, b)
+        else:
+            # the rounded operands' product and the f32 bias in f32, rounded once (the
+            # reference's f32-accumulating matmul); exact f32 products need TF32 off
+            x, w = x.to(self.dtype).float(), w.to(self.dtype).float()
+            out = F.linear(x, w, b.float()).to(self.dtype)
         return out if axis is None else tensor.gather_from_model(out, axis, -1)
 
 
@@ -137,20 +155,30 @@ class SNConv(nn.Module):
     ``power_iterate_`` advances them (once per player per step) and the
     forward uses sigma = u^T W v from the stored vectors.
 
+    ``upscale=2``: the conv of the 2x nearest-upsampled input, given the
+    input at its own size; ``downscale=2``: the conv followed by 2x2 average
+    pooling.  Either folds into one conv (``fold_upscale2``,
+    ``fold_downscale2``) whose kernel is made from W / sigma in f32 and cast
+    to ``dtype`` once, as the reference does.  Parameters and buffers are
+    those of the plain conv.
+
+    The input may be a tuple of channel parts: the conv of their channel
+    concat, as the sum of each part's conv with its slice of the kernel.
+
     ``f32_out``: for a conv whose output a norm reads.  The conv rounds to
     ``dtype`` and the bias (rounded to ``dtype``) is added in f32, so the norm
     reads the sum unrounded, as XLA compiles the JAX conv followed by a norm.
 
     Sharded (``model_axis``): u and v stay whole, sigma and the power
-    iteration run over the row-sharded W (``ops/spectral.py``), and the f32
-    sum of ``f32_out`` is what is gathered.
+    iteration run over the row-sharded W (``ops/spectral.py``), the folds act
+    on this rank's rows, and the f32 sum of ``f32_out`` is what is gathered.
     """
 
     model_axis: Optional[Axis] = None  # set: the weight holds this rank's output channels
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  padding: int = 0, dtype: Optional[torch.dtype] = None, eps: float = 1e-12,
-                 f32_out: bool = False):
+                 f32_out: bool = False, upscale: int = 1, downscale: int = 1):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, kernel_size, kernel_size)
@@ -162,6 +190,7 @@ class SNConv(nn.Module):
         self.dtype = dtype
         self.eps = eps
         self.f32_out = f32_out
+        self.mode = "up" if upscale == 2 else "down" if downscale == 2 else "plain"  # sn_conv's
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -173,30 +202,81 @@ class SNConv(nn.Module):
     def power_iterate_(self) -> None:
         power_iterate_(self.weight, self.u, self.v, self.eps, self.model_axis)
 
+    def folded_weight(self) -> torch.Tensor:
+        """W / sigma, folded for ``upscale`` or ``downscale``, in f32."""
+        w = self.weight / sigma(self.weight, self.u, self.v, self.model_axis)
+        return FOLDS[self.mode](w)
+
     def forward(self, x):
         axis = self.model_axis
-        w = self.weight / sigma(self.weight, self.u, self.v, axis)
-        b = self.bias
+        parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+        w, b = self.folded_weight(), self.bias
         if axis is not None:
-            x, b = tensor.copy_to_model(x, axis), tensor.split_to_model(b, axis)
+            parts = tuple(tensor.copy_to_model(p, axis) for p in parts)
+            b = tensor.split_to_model(b, axis)
         if self.dtype is not None:
-            x, w, b = x.to(self.dtype), w.to(self.dtype), b.to(self.dtype)
-            if self.f32_out:
-                out = conv2d(x, w, None, self.padding).float() + b.float()[:, None, None]
-                return out if axis is None else tensor.gather_from_model(out, axis, 1)
-        out = conv2d(x, w, b, self.padding)
+            parts, w, b = tuple(p.to(self.dtype) for p in parts), w.to(self.dtype), b.to(self.dtype)
+        if self.dtype is None and len(parts) == 1:  # f32: the bias inside the conv
+            out = sn_conv(parts[0], w, self.padding, self.mode, b)
+        else:
+            out, off = None, 0
+            for p in parts:
+                y = sn_conv(p, w[:, off:off + p.shape[1]], self.padding, self.mode)
+                out = y if out is None else out + y
+                off += p.shape[1]
+            f32 = self.f32_out and self.dtype is not None
+            out = out.float() + b.float()[:, None, None] if f32 else out + b[:, None, None]
         return out if axis is None else tensor.gather_from_model(out, axis, 1)
 
 
+def fold_upscale2(w: torch.Tensor) -> torch.Tensor:
+    """[O, I, k, k] -> [O, I, k + 1, k + 1], the sum of ``w``'s four 2x2 shifts: a conv of
+    the 2x nearest-upsampled input with ``w`` is a conv of the 2x zero-dilated input with
+    this one (the reference's ``_fold_kernel_for_upscale2``, its order of sums)."""
+    wp = F.pad(w, (1, 1, 1, 1))
+    return wp[..., :-1, :-1] + wp[..., 1:, :-1] + wp[..., :-1, 1:] + wp[..., 1:, 1:]
+
+
+def fold_downscale2(w: torch.Tensor) -> torch.Tensor:
+    """``fold_upscale2(w) / 4``: 2x2 average pooling of a conv with ``w`` is a stride-2
+    conv with this one (the reference's ``_fold_kernel_for_downscale2``)."""
+    return fold_upscale2(w) * 0.25
+
+
+FOLDS = {"plain": lambda w: w, "up": fold_upscale2, "down": fold_downscale2}
+
+
+def sn_conv(x, w, padding: int, mode: str = "plain", b=None):
+    """An ``SNConv``'s conv of one input part with its (folded) kernel slice.
+
+    "down": stride 2, padding ``padding`` on each side; for an even input size and a
+    kernel of 2 * padding + 1 taps before the fold, this is the reference's stride-2
+    conv padded (padding, k - padding).  "up": the conv of the 2x zero-dilated input
+    padded by ``padding`` + 1, as a transposed conv with stride 2; the output is twice
+    the input's size.  "plain": ``conv2d``.  A bias ``b`` is added inside the conv."""
+    if mode == "up":
+        k = w.shape[-1] - 1
+        return F.conv_transpose2d(x, w.flip(-2, -1).transpose(0, 1), b, stride=2,
+                                  padding=k - 1 - padding)
+    if mode == "down":
+        return F.conv2d(x, w, b, stride=2, padding=padding)
+    return conv2d(x, w, b, padding)
+
+
 def conv2d(x, w, b, padding: int):
-    """``F.conv2d``, except on the card for one input and one output channel."""
+    """``F.conv2d``, except that a bf16 conv rounds before its bias is added (the
+    reference's order; in f32 the bias inside the conv gives the same output), and
+    on the card a conv of one input and one output channel (``conv_one_channel``)."""
     if x.is_cuda and w.shape[:2] == (1, 1):
         return conv_one_channel(x, w, b, padding)
-    return F.conv2d(x, w, b, padding=padding)
+    if b is None or x.dtype != torch.bfloat16:
+        return F.conv2d(x, w, b, padding=padding)
+    return F.conv2d(x, w, None, padding=padding) + b[:, None, None]
 
 
 def conv_one_channel(x, w, b, padding: int):
-    """``F.conv2d`` of one input channel to one output channel, as im2col and a matmul.
+    """``F.conv2d`` of one input channel to one output channel, as im2col and a matmul,
+    then the bias.
 
     cuDNN 9.22 (torch 2.11, cu128) on an H100 gets bf16 convs of one channel
     to one channel wrong: the flagship env decoder's last conv ([640, 1, 32,
@@ -207,8 +287,16 @@ def conv_one_channel(x, w, b, padding: int):
     k = w.shape[-1]
     h, wd = (x.shape[2] + 2 * padding - k + 1, x.shape[3] + 2 * padding - k + 1)
     cols = F.unfold(x, k, padding=padding)  # [B, k*k, h*wd]
-    out = torch.matmul(w.reshape(1, -1), cols) + b.reshape(1, 1, 1)
+    out = torch.matmul(w.reshape(1, -1), cols)
+    if b is not None:
+        out = out + b.reshape(1, 1, 1)
     return out.reshape(x.shape[0], 1, h, wd)
+
+
+def round_to(x, dtype: Optional[torch.dtype]):
+    """``x`` in the compute dtype (unchanged without one): where the reference's
+    compile rounds a value that the port holds in f32."""
+    return x if dtype is None else x.to(dtype)
 
 
 class InstanceNorm(nn.Module):
@@ -502,9 +590,12 @@ class SGDisBlock(nn.Module):
 
 
 class ResBlockDown(nn.Module):
-    """SN residual down block: left 1x1 conv -> pool; right lrelu, conv, lrelu, conv, pool.
+    """SN residual down block: left 2x2 pool -> 1x1 conv; right lrelu, conv, lrelu, conv
+    with the 2x2 pool folded in (``SNConv(downscale=2)``), the reference's order.
 
-    The sum in f32: a norm or the attention reads it so (``models/image.py``)."""
+    ``x`` may be a tuple of channel parts: pooled and lrelu'd part by part, each
+    conv reads the tuple.  The sum in f32: a norm or the attention reads it so
+    (``models/image.py``)."""
 
     def __init__(self, in_channels: int, out_channels: int, conv_size: int = 3,
                  padding: int = 1, dtype: Optional[torch.dtype] = None):
@@ -513,12 +604,13 @@ class ResBlockDown(nn.Module):
         self.conv_r1 = SNConv(in_channels, out_channels, conv_size, padding=padding,
                               dtype=dtype)
         self.conv_r2 = SNConv(out_channels, out_channels, conv_size, padding=padding,
-                              dtype=dtype)
+                              dtype=dtype, downscale=2)
 
     def forward(self, x):
-        res = avg_pool2d(self.conv_l1(x))
-        out = self.conv_r1(leaky_relu(x))
-        out = avg_pool2d(self.conv_r2(leaky_relu(out)))
+        parts = isinstance(x, (tuple, list))
+        res = self.conv_l1(tuple(avg_pool2d(p) for p in x) if parts else avg_pool2d(x))
+        out = self.conv_r1(tuple(leaky_relu(p) for p in x) if parts else leaky_relu(x))
+        out = self.conv_r2(leaky_relu(out))
         return res.float() + out.float()
 
 
@@ -554,9 +646,12 @@ class SelfAttention(nn.Module):
 
 
 class ResBlockUp(nn.Module):
-    """SN residual 2x up block with instance norm.
+    """SN residual 2x up block with instance norm, the reference's order.
 
-    left: upsample -> 1x1 conv; right: IN, lrelu, upsample, conv, IN, lrelu, conv.
+    left: 1x1 conv -> upsample; right: IN, lrelu, conv of the upsampled input
+    (``SNConv(upscale=2)``), IN, lrelu, conv.  Each norm reads its input as the
+    port holds it (in2 the conv's f32 sum) and gives its output in the compute
+    dtype, as the reference's norm gives its input's dtype.
     """
 
     def __init__(self, in_channels: int, out_channels: int, conv_size: int = 3,
@@ -565,17 +660,17 @@ class ResBlockUp(nn.Module):
         self.conv_l1 = SNConv(in_channels, out_channels, 1, padding=0, dtype=dtype)
         self.in1 = InstanceNorm(in_channels)
         self.conv_r1 = SNConv(in_channels, out_channels, conv_size, padding=padding,
-                              dtype=dtype, f32_out=True)
+                              dtype=dtype, f32_out=True, upscale=2)
         self.in2 = InstanceNorm(out_channels)
         self.conv_r2 = SNConv(out_channels, out_channels, conv_size, padding=padding,
                               dtype=dtype)
+        self.dtype = dtype
 
     def forward(self, x):
         """NCHW -> NCHW at twice the size; the sum in f32 (see below)."""
-        res = self.conv_l1(upscale2d(x))
-        out = leaky_relu(self.in1(x))
-        out = self.conv_r1(upscale2d(out))
-        out = self.conv_r2(leaky_relu(self.in2(out)))
+        res = upscale2d(self.conv_l1(x))
+        out = self.conv_r1(leaky_relu(round_to(self.in1(x), self.dtype)))
+        out = self.conv_r2(leaky_relu(round_to(self.in2(out), self.dtype)))
         # The env decoder's first block takes a 1x1 input: its in1 sees one pixel
         # and gives its bias, so the right branch is the same for every sample,
         # and the skip branch, spatially constant, carries all of the noise.  The
@@ -590,8 +685,9 @@ class ResBlockUp(nn.Module):
 class AdaResBlock2(nn.Module):
     """AdaIN residual block; style mapped by four linears to two (mean, std) pairs.
 
-    The AdaINs read their convs' outputs in f32 (``SNConv(f32_out=True)``); the sum
-    in f32 (the res stack rounds its loop carry)."""
+    The AdaINs read their convs' outputs in f32 (``SNConv(f32_out=True)``) and give
+    theirs in the compute dtype; the sum in f32 (the res stack rounds its loop
+    carry)."""
 
     def __init__(self, channels: int, style_dim: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -601,20 +697,24 @@ class AdaResBlock2(nn.Module):
         self.lin2_std = Dense(style_dim, channels, dtype=dtype)
         self.conv1 = SNConv(channels, channels, 3, padding=1, dtype=dtype, f32_out=True)
         self.conv2 = SNConv(channels, channels, 3, padding=1, dtype=dtype, f32_out=True)
+        self.dtype = dtype
 
     def forward(self, x, style):
         res = x
-        x = ada_in(self.conv1(x), self.lin1_mean(style), self.lin1_std(style))
+        x = round_to(ada_in(self.conv1(x), self.lin1_mean(style), self.lin1_std(style)),
+                     self.dtype)
         x = self.conv2(leaky_relu(x))
-        x = ada_in(x, self.lin2_mean(style), self.lin2_std(style))
+        x = round_to(ada_in(x, self.lin2_mean(style), self.lin2_std(style)), self.dtype)
         return x.float() + res.float()
 
 
 class AdaResBlockUp2(nn.Module):
-    """AdaIN residual 2x up block.
+    """AdaIN residual 2x up block, the reference's order.
 
-    left: upsample -> 1x1 conv; right: AdaIN, lrelu, upsample, conv, AdaIN, lrelu, conv.
-    The second AdaIN reads its conv in f32; the sum in f32 (tanh reads it rounded).
+    left: 1x1 conv -> upsample; right: AdaIN, lrelu, conv of the upsampled input
+    (``SNConv(upscale=2)``), AdaIN, lrelu, conv.  The second AdaIN reads its conv
+    in f32; each gives its output in the compute dtype; the sum in f32 (tanh reads
+    it rounded).
     """
 
     def __init__(self, in_channels: int, out_channels: int, style_dim: int,
@@ -626,15 +726,17 @@ class AdaResBlockUp2(nn.Module):
         self.lin2_std = Dense(style_dim, out_channels, dtype=dtype)
         self.conv_l1 = SNConv(in_channels, out_channels, 1, padding=0, dtype=dtype)
         self.conv_r1 = SNConv(in_channels, out_channels, conv_size, padding=padding,
-                              dtype=dtype, f32_out=True)
+                              dtype=dtype, f32_out=True, upscale=2)
         self.conv_r2 = SNConv(out_channels, out_channels, conv_size, padding=padding,
                               dtype=dtype)
+        self.dtype = dtype
 
     def forward(self, x, style):
-        res = self.conv_l1(upscale2d(x))
-        out = leaky_relu(ada_in(x, self.lin1_mean(style), self.lin1_std(style)))
-        out = self.conv_r1(upscale2d(out))
-        out = self.conv_r2(leaky_relu(ada_in(out, self.lin2_mean(style), self.lin2_std(style))))
+        res = upscale2d(self.conv_l1(x))
+        out = round_to(ada_in(x, self.lin1_mean(style), self.lin1_std(style)), self.dtype)
+        out = self.conv_r1(leaky_relu(out))
+        out = round_to(ada_in(out, self.lin2_mean(style), self.lin2_std(style)), self.dtype)
+        out = self.conv_r2(leaky_relu(out))
         return out.float() + res.float()
 
 

@@ -7,6 +7,8 @@ StyleGAN [1,2,1] blur, LeakyReLU(0.2)).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -53,8 +55,15 @@ def blur3x3(x: torch.Tensor, normalize: bool = True, stride: int = 1) -> torch.T
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
-    """LeakyReLU with the project-wide default slope of 0.2."""
-    return F.leaky_relu(x, negative_slope)
+    """LeakyReLU with the project-wide default slope of 0.2, the slope rounded to x's
+    dtype: the reference multiplies by a weakly typed constant, so a bf16 input by
+    bf16(0.2) = 0.2001953125 (``F.leaky_relu`` multiplies by 0.2 in f32)."""
+    return F.leaky_relu(x, _slope(negative_slope, x.dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _slope(negative_slope: float, dtype: torch.dtype) -> float:
+    return torch.tensor(negative_slope, dtype=dtype).item()
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:

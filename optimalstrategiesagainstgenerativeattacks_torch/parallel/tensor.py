@@ -8,12 +8,13 @@ a model group and runs them itself (Megatron's column-parallel layer):
 
   * a sharded ``Dense``, ``Conv`` or ``SNConv`` (``nn/blocks.py``) reads its
     whole input through ``copy_to_model`` (identity; the backward sums the
-    ranks' partial input gradients), computes its slice of the output features
-    or channels with its slice of the whole bias inside the GEMM or conv (so
-    that a bf16 output rounds where the unsharded layer's does), and gathers
-    the slices (``gather_from_model``; ``SNConv(f32_out)`` gathers its f32
-    sum).  Everything after the gather runs whole on every rank of the model
-    group, the three kernels included;
+    ranks' partial input gradients; each channel part of an ``SNConv``'s tuple
+    input on its own), computes its slice of the output features or channels
+    with its slice of the whole bias, in the unsharded layer's order of
+    roundings (an ``SNConv``'s folds act on this rank's rows), and gathers the
+    slices (``gather_from_model``; ``SNConv(f32_out)`` gathers its f32 sum).
+    Everything after the gather runs whole on every rank of the model group,
+    the three kernels included;
   * the whole bias enters through ``split_to_model``, whose backward gathers:
     its gradient is made complete on every model rank inside the backward,
     where the slices' gradients are, and needs no step of its own;

@@ -848,6 +848,8 @@ def main_game(game: Game, args) -> None:
             eval_run(game, exp, run_csv_path(game, args.csv_dir, seed, args.cards, step,
                                              args.compute_dtype),
                      step, args.ds_root, args.device, args.img_size, visible[0])
+            if args.delete_scored:
+                os.remove(os.path.join(exp, "ckpts", f"model_{step:08d}"))
 
         run = run_training(cmd, env, exp, exp + ".log", steps,
                            score, args.min_steps_per_sec, args.deadline)
@@ -915,6 +917,9 @@ def main(argv=None) -> None:
     ap.add_argument("--deadline", type=float, default=None,
                     help="--vox, --flagship: stop training this many seconds after a run's "
                          "start; the checkpoints scored by then keep their CSVs")
+    ap.add_argument("--delete_scored", action="store_true",
+                    help="--vox, --flagship: delete each checkpoint once its grid is written "
+                         "(a grid every 500 steps of the flagship: 20 checkpoints of 943 MB)")
     ap.add_argument("--report", action="store_true",
                     help="print the table and the bar of the CSVs present, and stop")
     args = ap.parse_args(argv)

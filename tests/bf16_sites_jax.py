@@ -44,7 +44,17 @@ from optimalstrategiesagainstgenerativeattacks_tpu.ops.image_ops import (
     adaptive_max_pool as j_max_pool,
     leaky_relu as j_lrelu,
 )
-from bf16_sites_support import Case, Config, TChain, from_port, hooks, inputs, to_port, variants
+from bf16_sites_support import (
+    Case,
+    Config,
+    TChain,
+    from_port,
+    hooks,
+    inputs,
+    split,
+    to_port,
+    variants,
+)
 from test_torch_support import randomise_norms_and_gammas
 
 BIAS_SCALE = 30.0  # the tests' biases: the rounding of an offset value dominates
@@ -136,11 +146,7 @@ def readings(case: Case, cfg: Config, players=None, seed: int = 0,
     """{reading: mean absolute error at the consumer's output against the JAX chain in
     f32}, with ``"ref"``: the mean absolute value of that output."""
     rng = np.random.default_rng(seed)
-    xs = inputs(case, cfg, rng)
-    jargs = list(xs)
-    if case.split:
-        c = xs[0].shape[-1] // 2
-        jargs[0] = (xs[0][..., :c], xs[0][..., c:])
+    jargs = split(case, inputs(case, cfg, rng))
     j32, j16 = JChain(case.stages), JChain(case.stages, jnp.bfloat16)
     v = jax.jit(j32.init)(jax.random.PRNGKey(seed), *jargs)
     params = randomise_norms_and_gammas(jax.tree.map(np.asarray, v["params"]), rng)
@@ -156,9 +162,9 @@ def readings(case: Case, cfg: Config, players=None, seed: int = 0,
             "jax_as_written": compiled(j16, xla_allow_excess_precision=False)(v, *jargs)}
     outs = {k: np.asarray(o).astype(np.float32) for k, o in outs.items()}
     im, au = players if players is not None else cfg.players()
-    port = TChain(case.port(im, au), case.upsample)
+    port = TChain(case.port(im, au))
     load_flax(port, v["params"], v["spectral"])
-    targs = [to_port(x) for x in xs]
+    targs = [to_port(x) for x in jargs]
     for name, pairs in variants(case).items():
         with torch.no_grad(), hooks(port, pairs):
             outs[name] = from_port(port(*targs))

@@ -24,7 +24,6 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from optimalstrategiesagainstgenerativeattacks_torch.models import image as tmodels
@@ -33,7 +32,6 @@ from optimalstrategiesagainstgenerativeattacks_torch.ops.adain import ada_in
 from optimalstrategiesagainstgenerativeattacks_torch.ops.image_ops import (
     adaptive_max_pool,
     leaky_relu,
-    upscale2d,
 )
 
 BF16 = torch.bfloat16
@@ -108,10 +106,9 @@ class TTanh(nn.Module):
 
 class TChain(nn.Module):
     """Stages ``s0``, ``s1``, ... applied in turn, as the JAX chain names them; a
-    ``TRound`` after ``s<i>`` is ``s<i>_round``.  With ``upsample``, the first reads
-    the 2x upsampled input (a block's conv_r1, as the block calls it)."""
+    ``TRound`` after ``s<i>`` is ``s<i>_round``."""
 
-    def __init__(self, stages: Sequence[nn.Module], upsample: bool = False):
+    def __init__(self, stages: Sequence[nn.Module]):
         super().__init__()
         self.order, i = [], 0
         for m in stages:
@@ -119,11 +116,8 @@ class TChain(nn.Module):
             i += not isinstance(m, TRound)
             self.add_module(name, m)
             self.order.append(name)
-        self.upsample = upsample
 
     def forward(self, x, style=None):
-        if self.upsample:
-            x = upscale2d(x)
         for name in self.order:
             m = getattr(self, name)
             styled = isinstance(m, (tblocks.AdaResBlockUp2, tmodels.Img2ImgAdaInResModule, TAdaIn))
@@ -172,10 +166,9 @@ class Case:
     producer: str = "s0"
     f32_parts: Sequence[str] = ()
     value: str = "sum"
-    split: bool = False               # the JAX chain takes the input as two channel halves
+    split: bool = False               # the chains take the input as two channel halves
     styled: bool = False
     episodes: bool = False            # the input is sets of one identity's images
-    upsample: bool = False            # the port chain's first stage reads it 2x upsampled
 
 
 def down_schedule(cfg: Config, channels: int):
@@ -289,7 +282,7 @@ def cases(cfg: Config) -> list:
                        ("upscale", 2))), ("in", ())),
             lambda im, au, i=i: [getattr(im.env_decoder, f"up_{i}").conv_r1,
                                  getattr(im.env_decoder, f"up_{i}").in2],
-            (b, hw, hw, dch[i]), value="conv", upsample=True))
+            (b, hw, hw, dch[i]), value="conv"))
     hw = s >> n_up
     out.append(Case(
         "5", f"img2img res_0.conv1 -> ada_in [{b},{hw},{hw},{c}]",
@@ -310,7 +303,7 @@ def cases(cfg: Config) -> list:
                 getattr(im.img2img.adain_up_block, f"up_{i}").conv_r1,
                 TAdaIn(getattr(im.img2img.adain_up_block, f"up_{i}").lin2_mean,
                        getattr(im.img2img.adain_up_block, f"up_{i}").lin2_std)],
-            (b, hw, hw, uch[i]), value="conv", styled=True, upsample=True))
+            (b, hw, hw, uch[i]), value="conv", styled=True))
         hw *= 2
     return out
 
@@ -329,7 +322,18 @@ def inputs(case: Case, cfg: Config, rng):
     return xs
 
 
+def split(case: Case, xs: list) -> list:
+    """The chain's arguments: with ``case.split``, the input as its two channel halves
+    (the impersonator's ``split_gen_input`` pair)."""
+    if not case.split:
+        return list(xs)
+    c = xs[0].shape[-1] // 2
+    return [(xs[0][..., :c], xs[0][..., c:]), *xs[1:]]
+
+
 def to_port(x: np.ndarray) -> torch.Tensor:
+    if isinstance(x, tuple):
+        return tuple(to_port(p) for p in x)
     t = torch.from_numpy(x)
     return t.permute(0, 3, 1, 2) if t.ndim == 4 else t
 
@@ -340,10 +344,12 @@ def from_port(t: torch.Tensor) -> np.ndarray:
 
 
 def _f32_conv(module, args, out):
-    """The conv on its bf16-rounded operands in f32: its output unrounded."""
+    """The conv (folded as the module folds it) on its bf16-rounded operands in f32, plus
+    the rounded bias: its output unrounded."""
     x = args[0].to(BF16).float()
-    w = (module.weight / tblocks.sigma(module.weight, module.u, module.v)).to(BF16).float()
-    return F.conv2d(x, w, module.bias.to(BF16).float(), padding=module.padding)
+    w = module.folded_weight().to(BF16).float()
+    y = tblocks.sn_conv(x, w, module.padding, module.mode)
+    return y + module.bias.to(BF16).float()[:, None, None]
 
 
 @contextlib.contextmanager
