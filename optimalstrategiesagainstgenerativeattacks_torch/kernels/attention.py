@@ -32,6 +32,7 @@ from optimalstrategiesagainstgenerativeattacks_torch.kernels.build import (
     LaunchCounter,
     load_cuda_library,
 )
+from optimalstrategiesagainstgenerativeattacks_torch.ops.precision import widen
 
 FWD_LAUNCHES = LaunchCounter("attention_core_fwd")
 
@@ -105,9 +106,9 @@ def attention_core_cuda(f, g, h):
 def attention_core_ref(f, g, h):
     """Plain PyTorch version of the kernel: f32 products and softmax, P rounded
     to h's dtype before the second product, output in h's dtype."""
-    s = torch.bmm(f.float(), g.float().transpose(1, 2))  # [B, i, j]
-    p = torch.softmax(s, dim=1).to(h.dtype).float()
-    return torch.bmm(p.transpose(1, 2), h.float()).to(h.dtype)
+    s = torch.bmm(widen(f), widen(g).transpose(1, 2))  # [B, i, j]
+    p = widen(torch.softmax(s, dim=1).to(h.dtype))
+    return torch.bmm(p.transpose(1, 2), widen(h)).to(h.dtype)
 
 
 def attention_core_bwd(f, g, h, dout):
@@ -122,10 +123,10 @@ def attention_core_bwd(f, g, h, dout):
     anything.  Every op is differentiable, so a double backward (the R1
     penalty's) runs through it.
     """
-    ff, gf, hf, df_out = f.float(), g.float(), h.float(), dout.float()
+    ff, gf, hf, df_out = widen(f), widen(g), widen(h), widen(dout)
     p = torch.softmax(torch.bmm(ff, gf.transpose(1, 2)), dim=1)
-    dh = torch.bmm(p.to(h.dtype).float(), df_out)
-    dp = torch.bmm(hf, df_out.transpose(1, 2)).to(h.dtype).float()
+    dh = torch.bmm(widen(p.to(h.dtype)), df_out)
+    dp = widen(torch.bmm(hf, df_out.transpose(1, 2)).to(h.dtype))
     ds = p * (dp - (p * dp).sum(dim=1, keepdim=True))
     df = torch.bmm(ds, gf)
     dg = torch.bmm(ds.transpose(1, 2), ff)

@@ -268,10 +268,9 @@ class GIMFaceImpersonator(nn.Module):
       4. fake = img2img((env_img, leaked image), style=src)  -> [B, n, H, W, C];
       5. with ``use_img_att``, fake = img_att(first leaked image, fake).
 
-    ``split_gen_input`` (the reference's field, on by default): img2img reads the
-    pair as two channel parts, its first convs summing a conv of each with a
-    slice of their kernels; off, it reads their channel concat.  The parameters
-    are the same either way.
+    img2img reads the pair as two channel parts, its first convs summing a conv
+    of each with a slice of their kernels (the reference's default
+    ``split_gen_input``); the parameters are those of a conv of their concat.
 
     ``img_att`` exists only with ``use_img_att`` (the JAX impersonator owns no
     such parameters otherwise).
@@ -280,7 +279,7 @@ class GIMFaceImpersonator(nn.Module):
     def __init__(self, encoders: EncoderPair, env_decoder: EnvDecoder,
                  img2img: AdaInImage2Image, env_noise_mapper: MLP, style_dim: int,
                  img_channels: int, use_img_att: bool = False,
-                 dtype: Optional[torch.dtype] = None, split_gen_input: bool = True):
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.encoders = encoders
         self.env_decoder = env_decoder
@@ -292,7 +291,6 @@ class GIMFaceImpersonator(nn.Module):
         self.style_dim = style_dim
         self.img_channels = img_channels
         self.dtype = dtype
-        self.split_gen_input = split_gen_input
 
     def forward(self, leaked_sample, n: int, remove_noise_mean: bool = True,
                 z: Optional[torch.Tensor] = None,
@@ -314,9 +312,8 @@ class GIMFaceImpersonator(nn.Module):
 
         env_img = self.env_decoder(noisy_env.reshape(b * n, self.style_dim))
         leaked_img = to_nchw(expanded.reshape(b * n, h, w, c))
-        x = (env_img, leaked_img) if self.split_gen_input else torch.cat([env_img, leaked_img], 1)
         style = src[:, None, :].expand(b, n, self.style_dim).reshape(b * n, self.style_dim)
-        fake = self.img2img(x, style)
+        fake = self.img2img((env_img, leaked_img), style)
         if self.use_img_att:
             fake = self.img_att(leaked_img, fake)
         fake = to_nhwc(fake)
@@ -324,8 +321,8 @@ class GIMFaceImpersonator(nn.Module):
 
 
 def get_im(img_size: int, img_channels: int, style_dim: int, use_img_att: bool = False,
-           num_env_noise_layers: int = 4, dtype: Optional[torch.dtype] = None,
-           split_gen_input: bool = True) -> GIMFaceImpersonator:
+           num_env_noise_layers: int = 4, dtype: Optional[torch.dtype] = None
+           ) -> GIMFaceImpersonator:
     """The image impersonator (``get_im`` of the reference)."""
     encoders = EncoderPair(img_size=img_size, img_channels=img_channels, style_dim=style_dim,
                            dtype=dtype)
@@ -334,8 +331,7 @@ def get_im(img_size: int, img_channels: int, style_dim: int, use_img_att: bool =
                                dtype=dtype)
     mapper = MLP([style_dim] * (num_env_noise_layers + 1), dtype=dtype)
     return GIMFaceImpersonator(encoders, decoder, img2img, mapper, style_dim, img_channels,
-                               use_img_att=use_img_att, dtype=dtype,
-                               split_gen_input=split_gen_input)
+                               use_img_att=use_img_att, dtype=dtype)
 
 
 def get_au(img_size: int, img_channels: int, style_dim: int,

@@ -38,7 +38,7 @@ trailing pool into a stride-2 conv (``SNConv(downscale=2)``, K' = (K * 1_2x2)
 upsample and fold the upsample into a transposed stride-2 conv
 (``SNConv(upscale=2)``, K' = K * 1_2x2).  An ``SNConv`` given a tuple of
 channel parts sums per-part convs over slices of its kernel, as the JAX
-``SNConv`` does (the impersonator's ``split_gen_input``).  The folds change
+``SNConv`` does (the impersonator's image pair).  The folds change
 the roundings of a bf16 game (a conv of other operands rounds elsewhere), so
 with them the port's bf16 blocks round where XLA's compile of the JAX blocks
 does (``tests/test_torch_folds.py``).  So does the bf16 LeakyReLU
@@ -73,6 +73,7 @@ from optimalstrategiesagainstgenerativeattacks_torch.ops.image_ops import (
     to_nhwc,
     upscale2d,
 )
+from optimalstrategiesagainstgenerativeattacks_torch.ops.precision import widen
 from optimalstrategiesagainstgenerativeattacks_torch.ops.spectral import (
     l2_normalize,
     power_iterate_,
@@ -611,7 +612,7 @@ class ResBlockDown(nn.Module):
         res = self.conv_l1(tuple(avg_pool2d(p) for p in x) if parts else avg_pool2d(x))
         out = self.conv_r1(tuple(leaky_relu(p) for p in x) if parts else leaky_relu(x))
         out = self.conv_r2(leaky_relu(out))
-        return res.float() + out.float()
+        return widen(res) + widen(out)
 
 
 class SelfAttention(nn.Module):

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from optimalstrategiesagainstgenerativeattacks_torch.ops.precision import widen
 
 def mean_stat(x: torch.Tensor) -> torch.Tensor:
     """[batch, sample, latent] -> [batch, latent] sample mean."""
@@ -33,7 +34,7 @@ def unbiased_var(x: torch.Tensor) -> torch.Tensor:
     computed in f32 and returned in x's dtype, as ``jnp.var`` computes a bf16 or f16
     input.  In bf16 the centred values of a set whose spread is small beside its
     mean would keep only a few bits, and the authenticator's set std with them."""
-    f = x.float()
+    f = widen(x)
     centred = f - f.mean(dim=1, keepdim=True)
     return ((centred * centred).sum(dim=1) / (x.shape[1] - 1)).to(x.dtype)
 

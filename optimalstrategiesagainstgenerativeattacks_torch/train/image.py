@@ -62,6 +62,7 @@ from optimalstrategiesagainstgenerativeattacks_torch.data.episodic import Episod
 from optimalstrategiesagainstgenerativeattacks_torch.data.prefetch import device_prefetch
 from optimalstrategiesagainstgenerativeattacks_torch.models import image as imodels
 from optimalstrategiesagainstgenerativeattacks_torch.nn.init import init_module
+from optimalstrategiesagainstgenerativeattacks_torch.ops.precision import widen
 from optimalstrategiesagainstgenerativeattacks_torch.ops.spectral import power_iterate
 from optimalstrategiesagainstgenerativeattacks_torch.ops.stats import custom_std
 from optimalstrategiesagainstgenerativeattacks_torch.parallel import mesh
@@ -187,8 +188,8 @@ def r1_penalty(cfg: ImageGameConfig, out_real, real, si):
     kept differentiable (``create_graph``) for the parameter gradient."""
     g_real, g_si = torch.autograd.grad(out_real.sum(), (real, si), create_graph=True)
     b = real.shape[0]
-    return cfg.reg_param * (g_real.float().square().reshape(b, -1).sum(1)
-                            + g_si.float().square().reshape(b, -1).sum(1))
+    return cfg.reg_param * (widen(g_real).square().reshape(b, -1).sum(1)
+                            + widen(g_si).square().reshape(b, -1).sum(1))
 
 
 def noise(cfg: ImageGameConfig, b: int, generator: Optional[torch.Generator], device):

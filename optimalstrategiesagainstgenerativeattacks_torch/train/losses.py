@@ -10,10 +10,11 @@ from typing import Callable, Sequence
 
 import torch
 
+from optimalstrategiesagainstgenerativeattacks_torch.ops.precision import widen
 
 def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
     """Per-sample stable BCE-with-logits against a constant target; trailing axis squeezed."""
-    l = logits.float()
+    l = widen(logits)
     loss = torch.clamp(l, min=0.0) - l * target + torch.log1p(torch.exp(-l.abs()))
     return loss.squeeze(-1)
 
