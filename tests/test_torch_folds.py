@@ -240,7 +240,7 @@ def test_impersonator_split_input_equals_the_concat():
 # read f32.  The reference pools a bf16 input with bf16 sums, rounding each (a reduce
 # in the input's dtype), the port in f32 with one rounding, so with a bf16 input, as
 # the encoders' down blocks mostly read, fewer of a ResBlockDown's outputs agree
-# (ROADMAP §1).
+# (ROADMAP.md §3 item 1; scripts/torch_bf16_pool.py holds a pool that sums as XLA does).
 BF16_CASES = {
     "ResBlockDown 32->64 @16": (lambda: jblocks.ResBlockDown(64, dtype=BF),
                                 lambda: tblocks.ResBlockDown(32, 64, dtype=T16),
