@@ -39,7 +39,12 @@ Phases (each prints its lines; the first failure exits non-zero):
               the CPU bf16 chain's (which tests/test_torch_bf16_sites.py
               holds to XLA's compile of the JAX chain), where XLA keeps the
               value in f32 under the card's error with the value rounded,
-              and where it rounds equal to that;
+              and where it rounds equal to that; then the bf16 pool
+              (``ops/image_ops.py:Bf16Pool``, bf16 sums as XLA's compile of
+              the reference pools) at every shape and layout of a bf16 pool
+              in those configs' steps: output, gradient and R1's double
+              backward on the card bit-equal to the CPU, the output in
+              ``F.avg_pool2d``'s layout and the gradient in its gradient's;
   5. R1:      the R1 penalty and the authenticator's parameter gradients at
               the VoxCeleb widths in f32 on the card (kernels, and the
               attention core's backward differentiated again) against the
@@ -929,7 +934,7 @@ def check_bf16_sites(seed: int) -> None:
         del players16, players32
 
 
-def check_conv_sites(seed: int) -> None:
+def check_conv_sites(seed: int) -> dict:
     """Every spectrally normalised conv site of one bf16 train step of each config, run
     as the port runs it (``nn/blocks.py:sn_conv`` on the card: a plain conv, the
     upsample folded into a transposed stride-2 conv, the pool folded into a stride-2
@@ -940,11 +945,13 @@ def check_conv_sites(seed: int) -> None:
     output and both gradients.  cuDNN computes some bf16 convs of one channel
     wrongly (``nn/blocks.py:conv_one_channel``); this finds any other such site.  At
     the VoxCeleb config each authenticator site also runs R1's double backward (see
-    ``check_conv_double_backward``)."""
+    ``check_conv_double_backward``).  Returns each config's bf16 pool sites of that step
+    (``recording_pools``)."""
     from optimalstrategiesagainstgenerativeattacks_torch.nn.blocks import SNConv
     from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    pool_sites = {}
     for name, cfg in conv_site_configs(seed).items():
         state = timg.create_state(cfg, *timg.build_models(cfg), cfg.seed, "cuda")
         sites, au_sites = {}, set()
@@ -972,7 +979,8 @@ def check_conv_sites(seed: int) -> None:
                                                   dtype=np.uint8)).cuda()
                  for k, n in (("real_sample", cfg.n), ("leaked_sample", cfg.m),
                               ("si_sample", cfg.k))}
-        timg.train_step(state, batch)
+        with recording_pools() as pool_sites[name]:
+            timg.train_step(state, batch)
         for h in hooks:
             h.remove()
         del state
@@ -998,6 +1006,81 @@ def check_conv_sites(seed: int) -> None:
         if cfg.reg_param > 0:
             check_conv_double_backward(name, sorted(au_sites), gen)
         torch.cuda.empty_cache()
+    return pool_sites
+
+
+@contextlib.contextmanager
+def recording_pools():
+    """Yields a dict that counts, while inside, each bf16 ``avg_pool2d`` call of the
+    port's blocks by its input's (shape, strides)."""
+    from optimalstrategiesagainstgenerativeattacks_torch.nn import blocks
+
+    sites, pool = {}, blocks.avg_pool2d
+
+    def record(x, window=2):
+        if x.dtype == torch.bfloat16:
+            key = (tuple(x.shape), x.stride())
+            sites[key] = sites.get(key, 0) + 1
+        return pool(x, window)
+
+    blocks.avg_pool2d = record
+    try:
+        yield sites
+    finally:
+        blocks.avg_pool2d = pool
+
+
+def pool_and_grads(x, ct, v, pool=None) -> tuple:
+    """``pool`` (the port's ``avg_pool2d``) of ``x``: the output, the gradient at the
+    cotangent ``ct`` and R1's double backward, the gradient of <gradient, v> with respect
+    to ``ct``."""
+    from optimalstrategiesagainstgenerativeattacks_torch.ops.image_ops import avg_pool2d
+
+    x = x.detach().requires_grad_(True)
+    ct = ct.detach().requires_grad_(True)
+    y = (pool or avg_pool2d)(x)
+    (g,) = torch.autograd.grad(y, x, ct, create_graph=True)
+    (gg,) = torch.autograd.grad((g.float() * v).sum(), ct)
+    return y.detach(), g.detach(), gg
+
+
+def check_pool_sites(pool_sites: dict, device: str = "cuda", seed: int = 0) -> int:
+    """The port's pool at each bf16 site (shape, strides) of ``pool_sites`` ({config:
+    {site: calls a step}}), once a site, on ``device`` against the CPU on the same
+    random input: the unequal values of the output, the gradient and the double
+    backward, and the output's and gradient's strides against ``F.avg_pool2d``'s on
+    ``device``.  Fails on any difference; returns the sites checked."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(seed + 11)
+    seen = set()
+    for name, sites in pool_sites.items():
+        print(f"  {name}: {sum(sites.values())} bf16 pools a step at {len(sites)} shapes and "
+              f"layouts" + (" (checked above)" if sites.keys() <= seen else ""))
+        for (shape, strides), calls in sorted(sites.items()):
+            if (shape, strides) in seen:
+                continue
+            seen.add((shape, strides))
+            b, c, h, w = shape
+            x = torch.empty_strided(shape, strides, dtype=torch.bfloat16)
+            x.copy_(torch.randn(shape, generator=gen))
+            ct = torch.randn(b, c, h // 2, w // 2, generator=gen).to(torch.bfloat16)
+            v = torch.randn(shape, generator=gen)
+            want = pool_and_grads(x, ct, v)
+            xd = torch.empty_strided(shape, strides, dtype=torch.bfloat16, device=device)
+            got = pool_and_grads(xd.copy_(x), ct.to(device), v.to(device))
+            plain = pool_and_grads(xd, ct.to(device), v.to(device), lambda t: F.avg_pool2d(t, 2))
+            unequal = [int((a.cpu() != e).sum()) for a, e in zip(got, want)]
+            strides_ok = [a.stride() == p.stride() for a, p in zip(got[:2], plain[:2])]
+            print(f"    pool {list(shape)} strides {strides} ({calls} a step): unequal values "
+                  f"{device} vs CPU: output {unequal[0]}, gradient {unequal[1]}, double "
+                  f"backward {unequal[2]}; output strides {got[0].stride()}, gradient "
+                  f"{got[1].stride()}, as F.avg_pool2d's: {all(strides_ok)}")
+            if any(unequal) or not all(strides_ok):
+                fail(f"bf16 pool {list(shape)} strides {strides}: unequal {unequal}, strides "
+                     f"{[a.stride() for a in got[:2]]} against F.avg_pool2d's "
+                     f"{[p.stride() for p in plain[:2]]}")
+    return len(seen)
 
 
 def port_conv(x, w, pad: int, mode: str, bias):
@@ -2942,10 +3025,12 @@ def main() -> None:
           f"(tol {SLICE_TOL} x max(1, max|ref|)); then every SN conv site of a bf16 step of "
           f"{', '.join(conv_site_configs(args.seed))} against f32 without cuDNN (tol "
           f"{CONV_TOL} x max|ref|); then the bf16 rounding sites, card bf16 against CPU f32 "
-          f"(mean error <= {SITES_RATIO} x the CPU bf16 chain's)", flush=True)
+          f"(mean error <= {SITES_RATIO} x the CPU bf16 chain's); then the bf16 pool at every "
+          f"pool site of those steps, card against CPU bit for bit", flush=True)
     check_slice(args.seed)
-    check_conv_sites(args.seed)
+    pool_sites = check_conv_sites(args.seed)
     check_bf16_sites(args.seed)
+    check_pool_sites(pool_sites, seed=args.seed)
 
     print(f"[5/{N_PHASES}] R1 parity: VoxCeleb widths (64x64x3, style 512), f32, TF32 off, B=2, "
           f"against the CPU in f64 at the card's branches (penalty tol {R1_TOL} x max|ref|; each "

@@ -21,8 +21,72 @@ def upscale2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
 
 
 def avg_pool2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    """Average pooling with a square window equal to its stride (valid padding)."""
+    """Average pooling with a square window (at least 2) equal to its stride (valid padding).
+
+    A bf16 input is summed in bf16, as the reference sums it (``mean(..., dtype=x.dtype)``
+    over a window view) and XLA's compile adds it: ``Bf16Pool``.  Any other dtype goes
+    through ``F.avg_pool2d``."""
+    if x.dtype == torch.bfloat16:
+        return Bf16Pool.apply(x, window)
     return F.avg_pool2d(x, window)
+
+
+def _layout(nhwc: bool) -> torch.memory_format:
+    return torch.channels_last if nhwc else torch.contiguous_format
+
+
+class Bf16Pool(torch.autograd.Function):
+    """The window's values added one by one into a bf16 sum, row-major, each partial sum
+    rounded, then divided by the window's size: XLA's compile of the reference's pool,
+    bit for bit, on the CPU and the card alike (elementwise bf16 ops round the same on
+    both).  The output takes the layout ``F.avg_pool2d`` gives (channels_last for a
+    channels_last input, and for an NHWC image of one channel viewed NCHW), so the conv
+    behind it reads no transform.  Its gradient is ``Bf16Unpool``, whose gradient is
+    this pool again, so R1's double backward pools as the reference does."""
+
+    @staticmethod
+    def forward(ctx, x, window):
+        b, c, h, w = x.shape
+        sb, sc, sh, sw = x.stride()
+        nhwc = sc == 1 and x.is_contiguous(memory_format=torch.channels_last)
+        ctx.window, ctx.nhwc = window, nhwc
+        # [i, j, b, c, h/w, w/w]: the window's value at row i, column j
+        v = x.as_strided((window, window, b, c, h // window, w // window),
+                         (sh, sw, sb, sc, sh * window, sw * window))
+        terms = [t for row in v.unbind() for t in row.unbind()]
+        s = torch.empty((b, c, h // window, w // window), dtype=x.dtype, device=x.device,
+                        memory_format=_layout(nhwc))
+        torch.add(terms[0], terms[1], out=s)
+        for t in terms[2:]:
+            s.add_(t)
+        return s.div_(window * window)
+
+    @staticmethod
+    def backward(ctx, g):
+        return Bf16Unpool.apply(g, ctx.window, ctx.nhwc), None
+
+
+class Bf16Unpool(torch.autograd.Function):
+    """``g / w²`` broadcast over each window (exact for a window of 2) in one launch, in the
+    pooled input's layout; its gradient is ``Bf16Pool``."""
+
+    @staticmethod
+    def forward(ctx, g, window, nhwc):
+        ctx.window = window
+        b, c, h, w = g.shape
+        out = torch.empty((b, c, h * window, w * window), dtype=g.dtype, device=g.device,
+                          memory_format=_layout(nhwc))
+        ob, oc, oh, ow = out.stride()
+        gb, gc, gh, gw = g.stride()
+        shape = (b, c, h, window, w, window)
+        torch.div(g.as_strided(shape, (gb, gc, gh, 0, gw, 0)),
+                  window * window,
+                  out=out.as_strided(shape, (ob, oc, oh * window, oh, ow * window, ow)))
+        return out
+
+    @staticmethod
+    def backward(ctx, gg):
+        return Bf16Pool.apply(gg, ctx.window), None, None
 
 
 def max_pool2d(x: torch.Tensor, window: int = 2, stride: int | None = None) -> torch.Tensor:

@@ -1,18 +1,18 @@
 #!/usr/bin/env python
-"""The reference's pool of a bf16 input, a port of it, and the bf16 R1 step's readings.
+"""The reference's pool of a bf16 input, the port's, and the bf16 R1 step's readings.
 
 The reference pools with ``_window_view(x, w).mean(axis=(2, 4), dtype=x.dtype)``
 (``…_tpu/ops/image_ops.py:avg_pool2d``): a bf16 input is summed in bf16, each
-partial sum rounded.  The port pools with ``F.avg_pool2d``: an f32 sum, one
-rounding.  ``scripts/torch_bf16_pool.py:bf16_pool`` sums as XLA's CPU compile
-does; it is a candidate, not the port's pool, because of what ``r1`` reads.
-Four readings, CPU only (JAX and the port):
+partial sum rounded.  The port's ``…_torch/ops/image_ops.py:avg_pool2d`` sums a
+bf16 input as XLA's CPU compile does (``Bf16Pool``); ``F.avg_pool2d``, which the
+port used before, sums in f32 and rounds once.  Four readings, CPU only (JAX and
+the port):
 
 ``orders``  the share of pooled values equal to ``jax.jit`` of the reference's
             pool, bf16 inputs at the shapes of the flagship's and VoxCeleb's
             bf16 pools (batch 2), for each summation order of the window
-            (row-major or column-major one by one, pairwise, the port's f32
-            sum with one rounding); then ``bf16_pool``'s output,
+            (row-major or column-major one by one, pairwise, ``F.avg_pool2d``'s
+            f32 sum with one rounding); then the port's pool's output,
             gradient and R1's double backward (the gradient of <grad, v> with
             respect to the cotangent) against the reference's.
 ``r1``      ``tests/test_torch_train_step_bf16.py``'s statistic over batch
@@ -22,14 +22,15 @@ Four readings, CPU only (JAX and the port):
             bf16 step as XLA compiles it by default and of it with
             ``xla_allow_excess_precision`` off (as written); per seed the mean,
             the max and its tensor, the test's two verdicts (mean within 1.5 x
-            the default's, max within the as-written's) and the attention
-            gammas' errors.  ``--pool port`` runs the port as it is, ``bf16``
-            with ``bf16_pool`` in every ``ResBlockDown``, a list of
-            ``ResBlockDown`` names (``au.encoders.src.down_0`` ...) with it in
-            those only, ``each`` every one of those in turn and both others.
+            the default's, max within the larger of the two compiles' maxima)
+            and the attention gammas' errors.  The port runs as it is and with
+            ``F.avg_pool2d`` in every ``ResBlockDown`` ("f32_sum", the parent's
+            arithmetic); ``--pool`` adds a run with ``F.avg_pool2d`` in the
+            ``ResBlockDown`` names given (``au.encoders.src.down_0`` ...), or
+            ``each`` one run for each of them alone.
 ``blocks``  ``tests/test_torch_folds.py``'s two "bf16 input" ``ResBlockDown``
             cases (seed 0): the share of the block's bf16 outputs equal to XLA's
-            compile with the port's pool and with ``bf16_pool``.
+            compile with the port's pool and with ``F.avg_pool2d``.
 ``bias``    how XLA's compile sums the gradient of a bf16 conv's bias (a
             reduce of a bf16 cotangent over B, H, W): the share equal to an f32
             sum rounded once (the port's) and to a row-major bf16 sum.
@@ -59,26 +60,17 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from chip_smoke import pool_and_grads  # noqa: E402
 from optimalstrategiesagainstgenerativeattacks_torch.nn import blocks as tblocks  # noqa: E402
-from optimalstrategiesagainstgenerativeattacks_torch.port.transplant import (  # noqa: E402
-    flax_to_state_dict,
-)
+from optimalstrategiesagainstgenerativeattacks_torch.ops.image_ops import avg_pool2d  # noqa: E402
 from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg  # noqa: E402
 from optimalstrategiesagainstgenerativeattacks_tpu.ops.image_ops import (  # noqa: E402
     avg_pool2d as jax_pool,
 )
-from optimalstrategiesagainstgenerativeattacks_tpu.train import image as jimg  # noqa: E402
-from optimalstrategiesagainstgenerativeattacks_tpu.train.state import GameState  # noqa: E402
-from test_torch_support import (  # noqa: E402
-    init_jax_players,
-    jax_build,
-    jax_cfg,
-    small_cfg,
-    torch_state_from,
-    uint8_batch,
-)
-from test_torch_train_step import CASES, _adam_mu, _torch_grads  # noqa: E402
-from torch_bf16_pool import _windows, bf16_pool, pool_and_grads, pooled_by  # noqa: E402
+from test_torch_support import torch_state_from, uint8_batch  # noqa: E402
+from test_torch_train_step import _torch_grads  # noqa: E402
+from test_torch_train_step_bf16 import r1_reference, reference_grads  # noqa: E402
+from torch_bf16_pool import f32_sum_pool, pooled_by  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -91,6 +83,12 @@ POOL_SHAPES = {"flagship": [(2, 32, 32, 1), (2, 16, 16, 128)],
 
 
 # --- orders ---------------------------------------------------------------------------------
+
+def _windows(x, window):
+    """NCHW -> a [B, C, H/w, w, W/w, w] view of the non-overlapping windows."""
+    h, w = x.shape[-2:]
+    return x.unflatten(-1, (w // window, window)).unflatten(-3, (h // window, window))
+
 
 def order_sums(x, w):
     """Each candidate order's pooled bf16 value of NCHW ``x``."""
@@ -113,7 +111,7 @@ def order_sums(x, w):
     sums = {"row-major one by one": one_by_one(row_major),
             "column-major one by one": one_by_one(col_major),
             "pairwise": pairwise(row_major),
-            "the port's (f32, one rounding)": F.avg_pool2d(x, w) * (w * w)}
+            "F.avg_pool2d's (f32, one rounding)": F.avg_pool2d(x, w) * (w * w)}
     return {k: s / (w * w) for k, s in sums.items()}
 
 
@@ -142,7 +140,7 @@ def orders():
             got = pool_and_grads(nchw(x).contiguous(memory_format=torch.channels_last),
                                  nchw(ct), nchw(v, torch.float32))
             wants = (want, grad(x, ct), double(ct, x, v))
-            print("  bf16_pool equal to the reference: " + ", ".join(
+            print("  the port's pool equal to the reference: " + ", ".join(
                 f"{name} {np.mean(nhwc(a) == np.asarray(e, np.float32)):.4f}"
                 for name, a, e in zip(("output", "gradient", "double backward"), got, wants)))
 
@@ -154,10 +152,10 @@ def blocks():
 
     for name in [n for n in folds.BF16_CASES if n.endswith("bf16 input")]:
         port = folds.equal_share(name)
-        with pooled_by(bf16_pool):
-            candidate = folds.equal_share(name)
+        with pooled_by(f32_sum_pool):
+            f32_sum = folds.equal_share(name)
         print(f"{name}: share of outputs equal to XLA's, the port's pool {port:.4f}, "
-              f"bf16_pool {candidate:.4f} (bound {folds.BF16_CASES[name][3]})")
+              f"F.avg_pool2d {f32_sum:.4f} (bound {folds.BF16_CASES[name][3]})")
 
 
 # --- bias -----------------------------------------------------------------------------------
@@ -188,46 +186,18 @@ def bias():
 
 # --- r1 -------------------------------------------------------------------------------------
 
-def compiled_step(cfg, av, iv, excess_precision=True):
-    """(initial state, compiled reference step, the step's noise draw as f32 numpy), as
-    ``test_torch_train_step._reference_step`` builds them, compiled once for all batches."""
-    jau, jim = jax_build(cfg)
-    jcfg = jax_cfg(cfg)
-    opt_au, opt_im, _ = jimg.make_optimizers(jcfg)
-    jstate = GameState(
-        step=jnp.asarray(-1, jnp.int32), params_au=av["params"], params_im=iv["params"],
-        spectral_au=av["spectral"], spectral_im=iv["spectral"],
-        opt_au=opt_au.init(av["params"]), opt_im=opt_im.init(iv["params"]),
-        rng=jax.random.PRNGKey(7),
-    )
-    _, k_noise = jax.random.split(jax.random.fold_in(jstate.rng, 0))
-    shape = (cfg.batch_size, cfg.n, cfg.style_dim)
-    z_dtype = jnp.bfloat16 if cfg.compute_dtype == "bfloat16" else jnp.float32
-    z = jim.apply(iv, method=lambda m: jax.random.normal(m.make_rng("noise"), shape, z_dtype),
-                  rngs={"noise": k_noise})
-    jbatch = {k: jnp.asarray(v) for k, v in uint8_batch(cfg, 0).items()}
-    options = None if excess_precision else {"xla_allow_excess_precision": False}
-    step = jax.jit(jimg.make_train_step_fn(jcfg, jau, jim, opt_au, opt_im)).lower(
-        jstate, jbatch).compile(compiler_options=options)
-    return jstate, step, np.asarray(z, np.float32)
-
-
-def au_grads(jstate):
-    return flax_to_state_dict(_adam_mu(jstate.opt_au), {})
-
-
 class SitePools:
-    """``bf16_pool`` inside the named ``ResBlockDown`` modules (all of them for ``None``),
-    the port's pool elsewhere; ``blocks.avg_pool2d`` is this object's ``pool`` while
-    a step runs under ``attach``."""
+    """``F.avg_pool2d`` inside the named ``ResBlockDown`` modules (all of them for
+    ``None``), the port's pool elsewhere; ``blocks.avg_pool2d`` is this object's ``pool``
+    while a step runs under ``attach``."""
 
     def __init__(self, names):
         self.names, self.current = names, None
 
     def pool(self, x, window=2):
         if self.names is None or self.current in self.names:
-            return bf16_pool(x, window)
-        return F.avg_pool2d(x, window)
+            return F.avg_pool2d(x, window)
+        return avg_pool2d(x, window)
 
     def attach(self, state):
         hooks = []
@@ -246,41 +216,38 @@ def down_blocks(state):
             for n, m in getattr(state, p).named_modules() if isinstance(m, tblocks.ResBlockDown)]
 
 
-def port_grads(cfg16, av, iv, batch, z, pool):
+def port_grads(cfg16, av, iv, batch, z, names):
+    """The port's bf16 authenticator gradient, with ``F.avg_pool2d`` in the named blocks
+    (``[]`` none, ``None`` all)."""
     tstate = torch_state_from(cfg16, av, iv)
-    if pool == ["port"]:
-        timg.train_step(tstate, batch, z=torch.from_numpy(z.copy()))
-        return _torch_grads(tstate, "au")
-    sites = SitePools(None if pool == ["bf16"] else pool)
+    sites = SitePools(names)
     hooks = sites.attach(tstate)
-    saved, tblocks.avg_pool2d = tblocks.avg_pool2d, sites.pool
-    try:
-        timg.train_step(tstate, batch, z=torch.from_numpy(z.copy()))
-    finally:
-        tblocks.avg_pool2d = saved
-        for h in hooks:
-            h.remove()
+    with pooled_by(sites.pool):
+        try:
+            timg.train_step(tstate, batch, z=torch.from_numpy(z.copy()))
+        finally:
+            for h in hooks:
+                h.remove()
     return _torch_grads(tstate, "au")
 
 
 def r1(seeds, pool):
     t0 = time.time()
-    cfg = small_cfg(**CASES["r1"])
+    cfg, (av, iv), steps, z = r1_reference()
     cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
-    _, _, av, iv = init_jax_players(cfg)
-    js32, step32, _ = compiled_step(cfg, av, iv)
-    js16, default, z = compiled_step(cfg16, av, iv)
-    _, as_written, _ = compiled_step(cfg16, av, iv, excess_precision=False)
     print(f"# three reference compiles in {time.time() - t0:.1f} s", flush=True)
+    variants = {"port": [], "f32_sum": None}
     if pool == ["each"]:
-        pools = ([[name] for name in down_blocks(torch_state_from(cfg16, av, iv))]
-                 + [["bf16"], ["port"]])
-    else:
-        pools = [pool]
+        variants.update({f"f32_sum@{name}": [name]
+                         for name in down_blocks(torch_state_from(cfg16, av, iv))})
+    elif pool:
+        variants["f32_sum@" + ",".join(pool)] = pool
     for seed in seeds:
         batch = uint8_batch(cfg, seed=seed)
         jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-        want = au_grads(step32(js32, jbatch)[0])
+        grads = {name: reference_grads(step(jstate, jbatch)[0])
+                 for name, (jstate, step) in steps.items()}
+        want = grads.pop("f32")
         keys = [k for k in want
                 if not k.startswith("encoders.env.") and not k.endswith("att.conv_f.bias")]
         gammas = [k for k in keys if k.endswith("gamma")]
@@ -289,13 +256,11 @@ def r1(seeds, pool):
             return {k: float(np.linalg.norm(got[k] - want[k]) / np.linalg.norm(want[k]))
                     for k in keys}
 
-        errs = {"default": rel_errors(au_grads(default(js16, jbatch)[0])),
-                "as_written": rel_errors(au_grads(as_written(js16, jbatch)[0]))}
-        for p in pools:
-            label = {"port": "port", "bf16": "bf16_pool"}.get(p[0], "bf16_pool@" + ",".join(p))
-            errs[label] = rel_errors(port_grads(cfg16, av, iv, batch, z, p))
+        errs = {name: rel_errors(g) for name, g in grads.items()}
+        for label, names in variants.items():
+            errs[label] = rel_errors(port_grads(cfg16, av, iv, batch, z, names))
         ref_mean = np.mean(list(errs["default"].values()))
-        ref_max = max(errs["as_written"].values())
+        ref_max = max(max(errs["default"].values()), max(errs["as_written"].values()))
         for label, e in errs.items():
             vals = np.array(list(e.values()))
             verdict = ""
@@ -303,7 +268,7 @@ def r1(seeds, pool):
                 verdict = (f" mean {'ok' if vals.mean() <= 1.5 * ref_mean else 'FAIL'}"
                            f" ({vals.mean() / ref_mean:.3f} x default)"
                            f" max {'ok' if vals.max() <= ref_max else 'FAIL'}"
-                           f" ({vals.max() / ref_max:.3f} x as_written)")
+                           f" ({vals.max() / ref_max:.3f} x the compiles' larger max)")
             print(f"seed {seed} {label}: mean {vals.mean():.4f} max {vals.max():.4f} at "
                   f"{max(e, key=e.get)}{verdict} | "
                   + " ".join(f"{k}={e[k]:.4f}" for k in gammas), flush=True)
@@ -314,8 +279,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("reading", choices=["orders", "r1", "blocks", "bias"])
     ap.add_argument("--seeds", type=int, nargs="+", default=[3, 4, 5, 6, 7, 8], help="r1")
-    ap.add_argument("--pool", nargs="+", default=["each"],
-                    help="r1: port, bf16, each, or ResBlockDown names that take bf16_pool")
+    ap.add_argument("--pool", nargs="+", default=[],
+                    help="r1: each, or ResBlockDown names that take F.avg_pool2d")
     args = ap.parse_args(argv)
     if args.reading == "orders":
         orders()

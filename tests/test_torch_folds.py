@@ -19,9 +19,10 @@ Then the bf16 blocks against XLA's jitted compile of the Flax blocks on the
 CPU: the share of bf16 outputs (the port's f32 sums rounded) equal to XLA's
 is at least each case's bound, set under this test's seed-0 reading: 0.9619
 to 1.0 for the blocks and ``Dense`` (bounds 0.99, 0.93 for the 9x9 up
-block, 0.999 for ``Dense``), and for ``ResBlockDown`` given a bf16 input, as
-the encoders' down blocks mostly are, 0.6311 and 0.7202 (bounds 0.62 and
-0.71: the reference pools a bf16 input in bf16, the port in f32).  A bf16
+block, 0.999 for ``Dense``); ``ResBlockDown`` given a bf16 input, as the
+encoders' down blocks mostly are, reads 0.9990 and 0.9998 (bounds 0.99: the
+port pools a bf16 input with bf16 sums, as the reference does; with an f32
+sum, 0.6311 and 0.7202).  A bf16
 block rounds at each conv and bias; with the reference's order of ops and its
 folds the port rounds the same values as XLA does, and the outputs differ
 only where the two convs sum their products in another order.  In the torch
@@ -238,9 +239,10 @@ def test_impersonator_split_input_equals_the_concat():
 # name: (Flax block, port block, input shapes, least share of outputs equal to XLA's).
 # The inputs are bf16, except for the ResBlockDown cases not named "bf16 input": those
 # read f32.  The reference pools a bf16 input with bf16 sums, rounding each (a reduce
-# in the input's dtype), the port in f32 with one rounding, so with a bf16 input, as
-# the encoders' down blocks mostly read, fewer of a ResBlockDown's outputs agree
-# (ROADMAP.md §3 item 1; scripts/torch_bf16_pool.py holds a pool that sums as XLA does).
+# in the input's dtype), and so does the port (ops/image_ops.py:Bf16Pool): given bf16,
+# as the encoders' down blocks mostly read, a ResBlockDown reads 0.9990 (3x3) and
+# 0.9998 (9x9, split) equal to XLA's compile; with F.avg_pool2d's f32 sum, 0.6311 and
+# 0.7202 (scripts/torch_bf16_pool_readings.py blocks).
 BF16_CASES = {
     "ResBlockDown 32->64 @16": (lambda: jblocks.ResBlockDown(64, dtype=BF),
                                 lambda: tblocks.ResBlockDown(32, 64, dtype=T16),
@@ -250,10 +252,10 @@ BF16_CASES = {
         lambda: tblocks.ResBlockDown(2, 64, 9, 4, dtype=T16), [((2, 16, 16), (1, 1))], 0.99),
     "ResBlockDown 32->64 @16 bf16 input": (lambda: jblocks.ResBlockDown(64, dtype=BF),
                                            lambda: tblocks.ResBlockDown(32, 64, dtype=T16),
-                                           [(2, 16, 16, 32)], 0.62),
+                                           [(2, 16, 16, 32)], 0.99),
     "ResBlockDown 9x9 split 1+1->64 @16 bf16 input": (
         lambda: jblocks.ResBlockDown(64, conv_size=9, padding=4, dtype=BF),
-        lambda: tblocks.ResBlockDown(2, 64, 9, 4, dtype=T16), [((2, 16, 16), (1, 1))], 0.71),
+        lambda: tblocks.ResBlockDown(2, 64, 9, 4, dtype=T16), [((2, 16, 16), (1, 1))], 0.99),
     "ResBlockUp 64->32 @4": (lambda: jblocks.ResBlockUp(32, dtype=BF),
                              lambda: tblocks.ResBlockUp(64, 32, dtype=T16),
                              [(2, 4, 4, 64)], 0.99),

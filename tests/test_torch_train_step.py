@@ -97,9 +97,9 @@ def _adam_mu(opt_state):
 CASES = {"reg0": dict(), "r1": dict(reg_param=10.0, img_channels=3)}
 
 
-def _reference_step(cfg, av, iv, batch, excess_precision=True):
-    """One reference step from the transplanted state -> (new state, metrics,
-    the impersonator's noise draw as f32 numpy)."""
+def _lowered_step(cfg, av, iv, batch):
+    """(the transplanted reference state, its step lowered for the batch's shapes, the
+    impersonator's noise draw of that step as f32 numpy)."""
     jau, jim = jax_build(cfg)
     jcfg = jax_cfg(cfg)
     opt_au, opt_im, _ = jimg.make_optimizers(jcfg)
@@ -116,12 +116,26 @@ def _reference_step(cfg, av, iv, batch, excess_precision=True):
     z_dtype = jnp.bfloat16 if cfg.compute_dtype == "bfloat16" else jnp.float32
     z = jim.apply(iv, method=lambda m: jax.random.normal(m.make_rng("noise"), shape, z_dtype),
                   rngs={"noise": k_noise})
-    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    options = None if excess_precision else {"xla_allow_excess_precision": False}
-    step_fn = jax.jit(jimg.make_train_step_fn(jcfg, jau, jim, opt_au, opt_im)).lower(
-        jstate, jbatch).compile(compiler_options=options)
-    new_jstate, jmetrics, _ = step_fn(jstate, jbatch)
-    return new_jstate, {k: float(v) for k, v in jmetrics.items()}, np.asarray(z, np.float32)
+    lowered = jax.jit(jimg.make_train_step_fn(jcfg, jau, jim, opt_au, opt_im)).lower(
+        jstate, _jax_batch(batch))
+    return jstate, lowered, np.asarray(z, np.float32)
+
+
+def _jax_batch(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+# XLA's compile with every bf16 rounding the reference's code writes
+AS_WRITTEN = {"xla_allow_excess_precision": False}
+
+
+def _reference_step(cfg, av, iv, batch, excess_precision=True):
+    """One reference step from the transplanted state -> (new state, metrics,
+    the impersonator's noise draw as f32 numpy)."""
+    jstate, lowered, z = _lowered_step(cfg, av, iv, batch)
+    step_fn = lowered.compile(compiler_options=None if excess_precision else AS_WRITTEN)
+    new_jstate, jmetrics, _ = step_fn(jstate, _jax_batch(batch))
+    return new_jstate, {k: float(v) for k, v in jmetrics.items()}, z
 
 
 @functools.cache

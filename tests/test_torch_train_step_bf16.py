@@ -3,56 +3,115 @@ state of ``test_torch_train_step.py``'s R1 case.
 
 The R1 case in bf16 (``test_bf16_r1_step_matches_jax``) holds the port's
 bf16 step, as ``test_torch_models.py`` holds the bf16 players, to be no
-further from the f32 reference step than the reference's own bf16 step is.
-Its yardstick is the authenticator's gradient past the double backward,
-over the src encoder and the head: per tensor, the relative (Frobenius)
-error against the f32 reference; in mean over the tensors within a factor
-of 1.5 of the reference's bf16 step as XLA compiles it by default, and in
-max within a factor of 1 of the reference compiled with every bf16 rounding
-its code writes (``xla_allow_excess_precision`` off).  The env encoder is
-left out: past the set std (``test_torch_train_step.py``) the bf16 gradient of either side is
-as far from the f32 one as the gradient is large.  So is the attention f
-bias, whose gradient is zero in exact arithmetic.  The metrics are held to
-the f32 reference step within the card's bf16 kernel bar, atol 1e-2 plus
-2^-6 of the value.  Over the batch seeds 3-8 the mean held on all six,
-the max on five (seed 7: 3.11 times the reference's, on the src encoder's
-attention gamma; ``scripts/torch_bf16_pool_readings.py r1``); the test takes
-the batch of the f32 cases.
+further from the f32 reference step than the reference's own bf16 step is,
+on six batches (seeds 3-8).  Its yardstick is the authenticator's gradient
+past the double backward, over the src encoder and the head: per tensor,
+the relative (Frobenius) error against the f32 reference.  In mean over the
+tensors it is held within a factor of 1.5 of the reference's bf16 step as
+XLA compiles it by default; in max within the larger of the two maxima of
+the reference's bf16 step, as XLA compiles it by default and with every bf16
+rounding its code writes (``xla_allow_excess_precision`` off, "as written").
+The max is the error of the src encoder's attention gamma on most seeds,
+and that gradient cancels: one pool summed as the reference sums it moves
+its error from 0.03 to 0.98, and the reference's default compile misses the
+as-written max on the first seed (1.1995 against 0.7057).  The env encoder
+is left out: past the set std (``test_torch_train_step.py``) the bf16
+gradient of either side is as far from the f32 one as the gradient is
+large.  So is the attention f bias, whose gradient is zero in exact
+arithmetic.  The metrics are held to the f32 reference step within the
+card's bf16 kernel bar, atol 1e-2 plus 2^-6 of the value.
+
+Readings (``scripts/torch_bf16_pool_readings.py r1``; mean / max of the
+port, then the max's bound): seed 3 0.0791 / 0.8485 against 1.1995, 4
+0.1126 / 0.3033 against 0.4744, 5 0.0544 / 0.1038 against 0.1560, 6
+0.0320 / 0.1033 against 0.1670, 7 0.0369 / 0.0998 against 0.5504, 8
+0.1652 / 0.3147 against 0.3181.  With ``F.avg_pool2d``'s f32 sum in the
+pools instead (the port before its bf16 pool): 0.0655 / 0.6220, 0.1151 /
+0.1787, 0.0702 / 0.1050, 0.0328 / 0.1057, 0.1989 / 0.4975, 0.1576 / 0.3181,
+the last equal to the as-written compile's max to the bit.
 """
 
 import dataclasses
+import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import pytest
 import torch
 
 from optimalstrategiesagainstgenerativeattacks_torch.port.transplant import flax_to_state_dict
 from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
-from test_torch_support import torch_state_from, uint8_batch
-from test_torch_train_step import _adam_mu, _reference_step, _step_case, _torch_grads
+from test_torch_support import init_jax_players, small_cfg, torch_state_from, uint8_batch
+from test_torch_train_step import (
+    AS_WRITTEN,
+    CASES,
+    _adam_mu,
+    _jax_batch,
+    _lowered_step,
+    _torch_grads,
+)
 
 torch.set_num_threads(1)
 
+SEEDS = range(3, 9)
 
-def test_bf16_r1_step_matches_jax():
-    cfg, jstate32, jmetrics32, _, _, (av, iv) = _step_case("r1")
+
+@functools.cache
+def r1_reference():
+    """The R1 case's config and transplanted players, and its reference step compiled
+    once for every batch: (cfg, (av, iv), {name: (initial state, compiled step)}, the
+    bf16 step's noise draw), the steps "f32", bf16 "default" and bf16 "as_written"."""
+    cfg = small_cfg(**CASES["r1"])
     cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
-    batch = uint8_batch(cfg, seed=3)
-    as_written, _, z = _reference_step(cfg16, av, iv, batch, excess_precision=False)
-    default, _, _ = _reference_step(cfg16, av, iv, batch)
-    tstate = torch_state_from(cfg16, av, iv)
-    tmetrics, _ = timg.train_step(tstate, batch, z=torch.from_numpy(z.copy()))
+    _, _, av, iv = init_jax_players(cfg)
+    batch = uint8_batch(cfg, seed=SEEDS[0])
+    # XLA compiles outside the GIL: the f32 step compiles while the bf16 one is traced
+    js32, low32, _ = _lowered_step(cfg, av, iv, batch)
+    with ThreadPoolExecutor(3) as pool:
+        f32 = pool.submit(low32.compile)
+        js16, low16, z = _lowered_step(cfg16, av, iv, batch)
+        default = pool.submit(low16.compile)
+        as_written = pool.submit(low16.compile, compiler_options=AS_WRITTEN)
+        steps = {"f32": (js32, f32.result()), "default": (js16, default.result()),
+                 "as_written": (js16, as_written.result())}
+    return cfg, (av, iv), steps, z
 
-    def au_grads(jstate):
-        return flax_to_state_dict(_adam_mu(jstate.opt_au), {})
 
-    want = au_grads(jstate32)
-    keys = [k for k in want if not k.startswith("encoders.env.") and not k.endswith("att.conv_f.bias")]
+def reference_grads(jstate):
+    """The authenticator's gradient of a reference step (beta1 = 0: Adam's first moment)."""
+    return flax_to_state_dict(_adam_mu(jstate.opt_au), {})
+
+
+def r1_errors(seed: int):
+    """Each kept tensor's relative gradient error against the f32 reference step at batch
+    ``seed``: {"port", "default", "as_written": array}, and the metrics of the port's
+    step and of the f32 reference's."""
+    cfg, (av, iv), steps, z = r1_reference()
+    batch = uint8_batch(cfg, seed=seed)
+    jbatch = _jax_batch(batch)
+    runs = {name: step(jstate, jbatch) for name, (jstate, step) in steps.items()}
+    want = reference_grads(runs["f32"][0])
+    keys = [k for k in want
+            if not k.startswith("encoders.env.") and not k.endswith("att.conv_f.bias")]
 
     def rel_errors(got):
-        return np.array([np.linalg.norm(got[k] - want[k]) / np.linalg.norm(want[k]) for k in keys])
+        return np.array([np.linalg.norm(got[k] - want[k]) / np.linalg.norm(want[k])
+                         for k in keys])
 
-    port = rel_errors(_torch_grads(tstate, "au"))
-    assert port.mean() <= 1.5 * rel_errors(au_grads(default)).mean()
-    assert port.max() <= rel_errors(au_grads(as_written)).max()
+    tstate = torch_state_from(dataclasses.replace(cfg, compute_dtype="bfloat16"), av, iv)
+    tmetrics, _ = timg.train_step(tstate, batch, z=torch.from_numpy(z.copy()))
+    errors = {"port": rel_errors(_torch_grads(tstate, "au")),
+              **{name: rel_errors(reference_grads(runs[name][0]))
+                 for name in ("default", "as_written")}}
+    return errors, tmetrics, runs["f32"][1]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_bf16_r1_step_matches_jax(seed):
+    errors, tmetrics, jmetrics32 = r1_errors(seed)
+    port = errors["port"]
+    assert port.mean() <= 1.5 * errors["default"].mean()
+    assert port.max() <= max(errors["default"].max(), errors["as_written"].max())
     for k in timg.METRIC_KEYS:
-        assert abs(float(tmetrics[k]) - jmetrics32[k]) <= 1e-2 + 2.0 ** -6 * abs(jmetrics32[k]), k
+        want = float(jmetrics32[k])
+        assert abs(float(tmetrics[k]) - want) <= 1e-2 + 2.0 ** -6 * abs(want), k
