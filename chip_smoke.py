@@ -54,7 +54,11 @@ Phases (each prints its lines; the first failure exits non-zero):
   6. train:   flagship train steps (B=128, 32x32x1, style 512, bf16) on
               uint8 episodes drawn from --seed; metrics must be finite and
               every kernel of the path must have launched its expected
-              count; prints steps/s and images/s;
+              count; prints steps/s and images/s; then one bf16 step with
+              cuDNN's TF32 on (PyTorch's default) against off, from one
+              state, batch and noise (bit-equal, or the difference printed
+              beside two runs with it off), and f32 steps' ms with it on
+              and off (the CLIs' loops turn it off), A B B A;
   7. vox:     the VoxCeleb config (B=128, 64x64x3, style 512, R1 with
               reg_param 10, bf16) through the loop, ``train_gim_imgs``, on
               an in-memory uint8 dataset drawn from --seed: a checkpoint
@@ -342,6 +346,7 @@ MULTISEED_SEEDS, MULTISEED_STEPS, MULTISEED_TIMED = 2, 4, 4
 SMALL_SEEDS, SMALL_STEPS, SMALL_TIMED = 3, 10, 10
 # f32 multi-seed against single-seed steps on the card: the Gaussian phase's rule
 MULTISEED_TOL = 1e-4
+TF32_TIMED = 5  # f32 flagship steps timed a run of phase 6's TF32 reading
 MULTISEED_FLIPS = 4  # a tensor's entries whose Adam step may take the other sign (as in the
 # R1 train-step test of the CPU suite)
 N_PHASES = 17
@@ -1209,6 +1214,78 @@ def run_train(seed: int, n_steps: int, counters, use_img_att: bool = False) -> t
           f"{step_s * 1e3:.2f} ms/step, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{smi_line()}]")
     return launches, step_s
+
+
+def tf32_step(cfg, batch, z, cudnn_tf32: bool) -> tuple:
+    """(parameters, metrics) after one train step from ``cfg.seed``'s state, with cuDNN's
+    f32 convs in TF32 or not (cuBLAS's f32 matmuls f32 either way, as PyTorch's
+    default), cuDNN's deterministic algorithms."""
+    from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
+
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    au, im = timg.build_models(cfg)
+    state = timg.create_state(cfg, au, im, cfg.seed, "cuda")
+    metrics, _ = timg.train_step(state, batch, z=z)
+    params = {f"{p}.{k}": v.detach().clone() for p, m in (("au", state.au), ("im", state.im))
+              for k, v in m.named_parameters()}
+    return params, {k: float(v) for k, v in metrics.items()}
+
+
+def step_difference(a: tuple, b: tuple) -> str:
+    """How two (parameters, metrics) of ``tf32_step`` differ."""
+    unequal = [k for k in a[0] if not torch.equal(a[0][k], b[0][k])]
+    if not unequal and a[1] == b[1]:
+        return "bit-equal"
+    worst = max(((a[0][k] - b[0][k]).abs().max().item()
+                 / max(b[0][k].abs().max().item(), 1e-30), k) for k in unequal) \
+        if unequal else (0.0, "-")
+    return (f"{len(unequal)} of {len(a[0])} parameters unequal (largest |diff| / max|param| "
+            f"{worst[0]:.3g}, {worst[1]}), metrics {'equal' if a[1] == b[1] else 'unequal'}: "
+            f"au_loss {a[1]['au_loss']:.9g} / {b[1]['au_loss']:.9g}")
+
+
+def check_tf32(seed: int) -> None:
+    """The CLIs' loops turn TF32 off (``ops/precision.py:exact_f32``).  One bf16
+    flagship step with cuDNN's TF32 on (PyTorch's default) and off, from one state,
+    batch and noise, against a second run with it off: is any f32 conv left in the
+    bf16 step?  Then f32 flagship steps' ms with it on and off, A B B A."""
+    from optimalstrategiesagainstgenerativeattacks_torch.train import image as timg
+    from optimalstrategiesagainstgenerativeattacks_torch.utils.config import ImageGameConfig
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    cfg = ImageGameConfig(seed=seed)
+    rng = np.random.default_rng(seed + 5)
+    batch = {key: torch.from_numpy(rng.integers(
+        0, 256, (cfg.batch_size, n, cfg.img_size, cfg.img_size, cfg.img_channels),
+        dtype=np.uint8)).cuda()
+        for key, n in (("real_sample", cfg.n), ("leaked_sample", cfg.m), ("si_sample", cfg.k))}
+    z = timg.noise(cfg, cfg.batch_size, torch.Generator(device="cuda").manual_seed(seed),
+                   "cuda")
+    off, on, off_again = (tf32_step(cfg, batch, z, flag) for flag in (False, True, False))
+    print(f"  bf16 flagship step, cuDNN TF32 on against off: {step_difference(on, off)}; "
+          f"off against off: {step_difference(off_again, off)}")
+    torch.backends.cudnn.deterministic = deterministic
+    del off, on, off_again
+
+    cfg = ImageGameConfig(seed=seed, compute_dtype="float32")
+    au, im = timg.build_models(cfg)
+    state = timg.create_state(cfg, au, im, seed, "cuda")
+    ms = {True: [], False: []}
+    for flag in (True, False, False, True):
+        torch.backends.cudnn.allow_tf32 = flag
+        timg.train_step(state, batch)  # cuDNN picks its algorithms for the flag
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TF32_TIMED):
+            timg.train_step(state, batch)
+        torch.cuda.synchronize()
+        ms[flag].append((time.perf_counter() - t0) / TF32_TIMED * 1e3)
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"  f32 flagship step, {TF32_TIMED} steps a run, on off off on: TF32 on (before) "
+          f"{ms[True][0]:.2f} / {ms[True][1]:.2f} ms, off (the CLIs now) {ms[False][0]:.2f} / "
+          f"{ms[False][1]:.2f} ms  [{smi_line()}]")
 
 
 def check_noise_draw(seed: int) -> None:
@@ -3042,6 +3119,7 @@ def main() -> None:
     launches, flagship_step_s = run_train(args.seed, args.steps, counters)
     check_train_launches("train", launches, args.steps)
     check_noise_draw(args.seed)
+    check_tf32(args.seed)
     for name, n in launches.items():
         results[name]["launches"] = n
 

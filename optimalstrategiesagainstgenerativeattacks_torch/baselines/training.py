@@ -35,6 +35,7 @@ from optimalstrategiesagainstgenerativeattacks_torch.baselines.siamese import (
 )
 from optimalstrategiesagainstgenerativeattacks_torch.data.episodic import EpisodicBatchLoader
 from optimalstrategiesagainstgenerativeattacks_torch.nn.init import init_module
+from optimalstrategiesagainstgenerativeattacks_torch.ops.precision import exact_f32
 from optimalstrategiesagainstgenerativeattacks_torch.train.checkpoints import CKPT_PREFIX
 from optimalstrategiesagainstgenerativeattacks_torch.train.image import prepare
 from optimalstrategiesagainstgenerativeattacks_torch.train.losses import bce_with_logits
@@ -108,6 +109,7 @@ def train_arcface(cfg: Dict[str, Any], ds, progress: bool = True, device="cuda")
     """cfg keys: outdir, num_layers, dropout, img_size, img_channels, emb_dim,
     th, lr, batch_size, n_epochs, save_every, seed.  Returns (model, metrics
     of the last step as floats)."""
+    exact_f32()
     os.makedirs(cfg["outdir"], exist_ok=True)
     save_args(cfg, cfg["outdir"])
     seed = cfg.get("seed", 1)
@@ -228,6 +230,7 @@ def train_siamese(cfg: Dict[str, Any], ds, progress: bool = True, device="cuda")
     """cfg keys: outdir, img_size, img_channels, lr, batch_size, n_epochs,
     save_every, seed, and optionally mining ("batch_hard" | "random") and
     num_workers.  Returns (model, metrics of the last step as floats)."""
+    exact_f32()
     os.makedirs(cfg["outdir"], exist_ok=True)
     save_args(cfg, cfg["outdir"])
     seed = cfg.get("seed", 1)

@@ -43,6 +43,7 @@ from optimalstrategiesagainstgenerativeattacks_torch.eval.scorer import (
     eval_authenticator_and_impersonator,
     real_quantile_threshold,
 )
+from optimalstrategiesagainstgenerativeattacks_torch.ops.precision import exact_f32
 from optimalstrategiesagainstgenerativeattacks_torch.train.checkpoints import (
     CheckpointIO,
     get_latest_ckpt,
@@ -305,6 +306,7 @@ def eval_authentication_task(
     writes the raw real/fake score vectors per pairing as
     ``scores_{au}_{im}.npz``.
     """
+    exact_f32()
     os.makedirs(os.path.dirname(os.path.abspath(csv_file_path)), exist_ok=True)
     want_scores = calibrate_q is not None or dump_scores_dir is not None
     rows = []

@@ -38,6 +38,7 @@ import torch
 
 from optimalstrategiesagainstgenerativeattacks_torch.models import gaussian as gmodels
 from optimalstrategiesagainstgenerativeattacks_torch.nn.init import init_module
+from optimalstrategiesagainstgenerativeattacks_torch.ops.precision import exact_f32
 from optimalstrategiesagainstgenerativeattacks_torch.ops.stats import custom_std
 from optimalstrategiesagainstgenerativeattacks_torch.parallel import mesh
 from optimalstrategiesagainstgenerativeattacks_torch.train.checkpoints import (
@@ -215,6 +216,7 @@ def train_gim_gaussian(cfg: GaussianGameConfig, logger=None, checkpoint_io=None,
     """
     from optimalstrategiesagainstgenerativeattacks_torch.train.logger import Logger
 
+    exact_f32()
     logger = logger or Logger(
         log_dir=os.path.join(cfg.outdir, "logs"),
         img_dir=os.path.join(cfg.outdir, "imgs"),

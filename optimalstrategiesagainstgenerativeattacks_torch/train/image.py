@@ -62,7 +62,7 @@ from optimalstrategiesagainstgenerativeattacks_torch.data.episodic import Episod
 from optimalstrategiesagainstgenerativeattacks_torch.data.prefetch import device_prefetch
 from optimalstrategiesagainstgenerativeattacks_torch.models import image as imodels
 from optimalstrategiesagainstgenerativeattacks_torch.nn.init import init_module
-from optimalstrategiesagainstgenerativeattacks_torch.ops.precision import widen
+from optimalstrategiesagainstgenerativeattacks_torch.ops.precision import exact_f32, widen
 from optimalstrategiesagainstgenerativeattacks_torch.ops.spectral import power_iterate
 from optimalstrategiesagainstgenerativeattacks_torch.ops.stats import custom_std
 from optimalstrategiesagainstgenerativeattacks_torch.parallel import mesh
@@ -474,6 +474,7 @@ def train_gim_imgs(cfg: ImageGameConfig, train_ds, val_ds, logger=None, progress
     save, since the other ranks cannot skip the rest of the epoch with it.
     Returns the state.
     """
+    exact_f32()
     torch.backends.cudnn.benchmark = cudnn_benchmark
     au, im = build_models(cfg)
     logger = logger or Logger(

@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from optimalstrategiesagainstgenerativeattacks_torch.data.device_sampler import DeviceEpisodicLoader
+from optimalstrategiesagainstgenerativeattacks_torch.ops.precision import exact_f32
 from optimalstrategiesagainstgenerativeattacks_torch.train.checkpoints import CheckpointIO
 from optimalstrategiesagainstgenerativeattacks_torch.train.image import (
     build_models,
@@ -141,6 +142,7 @@ def train_multiseed_gim_imgs(cfg: ImageGameConfig, seeds: Sequence[int], train_d
     ``args.json`` written at the start (``args``: the CLI's arguments, else
     the config's fields).  Returns (state, [(step, au_acc [S] numpy)]).
     """
+    exact_f32()
     seeds = [int(s) for s in seeds]
     args = dataclasses.asdict(cfg) if args is None else args
     ios = []

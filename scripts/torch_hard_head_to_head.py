@@ -106,7 +106,9 @@ run stopped by ``--deadline`` keeps the readings it reached.  The run's steps/s
 come from the write times of the image grids the CLI writes every 500 steps;
 with the cards and the card's name they go into the copied ``args.json`` under
 ``study_run``.  ``--min_steps_per_sec`` stops a run that trains slower than that
-over its first 500 steps.
+over its first 500 steps.  ``--tpu_precision`` (one card) trains under
+``scripts/torch_tpu_precision.py``'s dispatch mode, which computes every f32 product
+on bf16 operands, as a TPU's default precision does; the grids score exactly.
 """
 
 from __future__ import annotations
@@ -134,6 +136,7 @@ sys.path.insert(0, str(REPO))
 
 DOCS_DIR = "docs/hard_head_to_head"
 MAKE_SET = "scripts/make_hard_glyph_ds.py"
+TPU_PRECISION = "scripts/torch_tpu_precision.py"
 TRAIN_MODULE = "optimalstrategiesagainstgenerativeattacks_torch.train_multiseed_gim_on_imgs"
 ATTACKERS = ("gim", "replay", "rnd_src")
 IMPLS = ("ref", "jax", "port")
@@ -503,7 +506,7 @@ def visible_cards(device: str) -> list:
 
 def train_command(game: Game, seed: int, ds_root: str, exp: str, sizes: list, n_epochs: int,
                   save_every: int, cudnn_benchmark: bool, cards: int, device: str,
-                  visible: list) -> tuple:
+                  visible: list, tpu_precision: bool = False) -> tuple:
     """(command, environment) of one run of the port's image CLI on ``cards`` cards.
 
     One card: the first of ``visible``, pinned through ``CUDA_VISIBLE_DEVICES`` (with
@@ -512,14 +515,18 @@ def train_command(game: Game, seed: int, ds_root: str, exp: str, sizes: list, n_
     since the CLI refuses the device loader in a process group; it then starts one
     worker a card and trains data parallel at the same global batch.  With
     ``--device cpu`` the ranks are started by ``torch.distributed.run`` and join over
-    gloo."""
+    gloo.  ``tpu_precision`` (one card) runs the CLI under
+    ``scripts/torch_tpu_precision.py``'s mode: its f32 products on bf16 operands."""
     if cards > len(visible) and device == "cuda":
         raise SystemExit(f"--cards {cards}: only {len(visible)} visible")
+    if tpu_precision and cards != 1:
+        raise SystemExit("--tpu_precision: one card only (the workers would run without it)")
     data = game.one_card_data if cards == 1 else ("--device_data", "off")
     flags = ["--dataset_root", ds_root, "-o", exp, *game.config, *sizes, *data,
              "--seed", str(seed), "--n_epochs", str(n_epochs), "--save_every", str(save_every),
              "--cudnn_benchmark", str(int(cudnn_benchmark)), "--device", device]
-    launcher = [sys.executable, "-m"]
+    launcher = ([sys.executable, str(REPO / TPU_PRECISION), "run", "-m"] if tpu_precision
+                else [sys.executable, "-m"])
     env = dict(os.environ)
     if cards == 1:
         env["CUDA_VISIBLE_DEVICES"] = visible[0]
@@ -840,7 +847,7 @@ def main_game(game: Game, args) -> None:
         shutil.rmtree(exp, ignore_errors=True)  # the grids' times are this run's
         cmd, env = train_command(game, seed, args.ds_root, exp, sizes, n_epochs,
                                  args.save_every, args.cudnn_benchmark, args.cards,
-                                 args.device, visible)
+                                 args.device, visible, args.tpu_precision)
         print(" ".join(cmd[1:]) + f"  ({per_epoch} steps an epoch, {n_epochs} epochs; "
               f"CUDA_VISIBLE_DEVICES={env.get('CUDA_VISIBLE_DEVICES', '')})", flush=True)
 
@@ -857,6 +864,7 @@ def main_game(game: Game, args) -> None:
               f"{run['steps_per_sec']}", flush=True)
         args_json = json.loads(Path(exp, "args.json").read_text())
         args_json["study_run"] = {"cards": args.cards, "card": args.card,
+                                  "tpu_precision": args.tpu_precision,
                                   "train_seconds": run["seconds"], "stopped": run["stopped"],
                                   "steps_per_sec": run["steps_per_sec"],
                                   "grid_marks": run["grid_marks"]}
@@ -920,6 +928,11 @@ def main(argv=None) -> None:
     ap.add_argument("--delete_scored", action="store_true",
                     help="--vox, --flagship: delete each checkpoint once its grid is written "
                          "(a grid every 500 steps of the flagship: 20 checkpoints of 943 MB)")
+    ap.add_argument("--tpu_precision", action="store_true",
+                    help="--vox, --flagship, one card: train under "
+                         "scripts/torch_tpu_precision.py's mode (every f32 product on bf16 "
+                         "operands, as a TPU's default precision computes it); the grids "
+                         "score exactly")
     ap.add_argument("--report", action="store_true",
                     help="print the table and the bar of the CSVs present, and stop")
     args = ap.parse_args(argv)

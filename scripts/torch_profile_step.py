@@ -116,6 +116,9 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    from optimalstrategiesagainstgenerativeattacks_torch.ops.precision import exact_f32
+
+    exact_f32()  # as the CLIs' loops
     torch.backends.cudnn.benchmark = args.cudnn_benchmark
 
     if args.config == "legacy":
